@@ -184,6 +184,12 @@ def pytest_configure(config):
         "cost: per-doc/per-tenant cost-ledger attribution, top-K "
         "bounding, and capacity-model tests",
     )
+    # "cuda" tags the PyTorch port's tests that need a CUDA device: they
+    # skip with a reason where there is none (decided inside the test)
+    config.addinivalue_line(
+        "markers",
+        "cuda: PyTorch-port kernel tests that run only on a CUDA device",
+    )
 
 
 @pytest.hookimpl(hookwrapper=True)
