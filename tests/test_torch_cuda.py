@@ -125,6 +125,38 @@ def ranks_case(seed: int, b: int, n1: int):
     return right, valid
 
 
+def sync_case(seed: int, b: int, n: int, n_slots: int, wide: bool = False):
+    """One seeded K9/K10 case: ``row_slot, row_clock, row_end [b, n]`` and
+    a remote ``sv [b, n_slots]``, all int32.
+
+    Slots cover NULL rows (-1, and a few other negatives) and rows whose
+    slot lies at or past ``n_slots`` (dropped by K9, read as INT32_MIN by
+    K10).  Clocks follow the engine's shape (``row_end`` past
+    ``row_clock``, ``sv`` near the rows' clocks) unless ``wide``, where
+    every column spans the whole int32 range so ``remote - clock``
+    wraps."""
+    g = np.random.default_rng(seed)
+    row_slot = g.integers(0, n_slots, size=(b, n))
+    r = g.random((b, n))
+    row_slot[r < 0.15] = -1
+    row_slot[(r >= 0.15) & (r < 0.17)] = -7
+    over = (r >= 0.17) & (r < 0.2)
+    row_slot[over] = n_slots + g.integers(0, 4, size=int(over.sum()))
+    if wide:
+        lo, hi = -(2**31), 2**31 - 1
+        row_clock = g.integers(lo, hi, size=(b, n), endpoint=True)
+        row_end = g.integers(lo, hi, size=(b, n), endpoint=True)
+        sv = g.integers(lo, hi, size=(b, n_slots), endpoint=True)
+    else:
+        row_clock = g.integers(0, 5000, size=(b, n))
+        row_end = row_clock + g.integers(1, 40, size=(b, n))
+        sv = g.integers(0, 5100, size=(b, n_slots))
+        sv[g.random((b, n_slots)) < 0.2] = 0
+    return tuple(
+        a.astype(np.int32) for a in (row_slot, row_clock, row_end, sv)
+    )
+
+
 def _torch(arrays, device):
     return tuple(torch.from_numpy(np.array(a)).to(device) for a in arrays)
 
@@ -264,3 +296,88 @@ def test_engine_on_card_matches_cpu_twin(cuda_device, pipeline, monkeypatch):
         for u in ups:
             Y.apply_update(doc, u)
         assert eng.text(i) == doc.get_text("text").to_string()
+
+
+SYNC_SHAPES = [
+    (1, 1, 1), (3, 70, 4), (17, 2049, 8), (5, 3000, 64), (4096, 2048, 8),
+    (2, 4096, 20000),  # n_slots past shared memory: the global-atomics path
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("shape", SYNC_SHAPES)
+def test_state_vector_kernel_matches_plain(cuda_device, shape, wide):
+    b, n, n_slots = shape
+    row_slot, _clock, row_end, _sv = _torch(
+        sync_case(17 + b + n, b, n, n_slots, wide), cuda_device
+    )
+    ref = kernels.state_vector_kernel_plain(row_slot, row_end, n_slots)
+    before = kernels.launches["state_vector"]
+    got = kernels.state_vector_kernel(row_slot, row_end, n_slots)
+    torch.cuda.synchronize()
+    assert kernels.launches["state_vector"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == (b, n_slots)
+    assert torch.equal(ref, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("shape", SYNC_SHAPES)
+def test_diff_mask_kernel_matches_plain(cuda_device, shape, wide):
+    b, n, n_slots = shape
+    args = _torch(sync_case(19 + b + n, b, n, n_slots, wide), cuda_device)
+    ref = kernels.diff_mask_kernel_plain(*args)
+    before = kernels.launches["diff_mask"]
+    got = kernels.diff_mask_kernel(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["diff_mask"] == before + 1
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.int32
+    for r, o in zip(ref, got):
+        assert torch.equal(r, o)
+
+
+@pytest.mark.cuda
+def test_provider_on_card_matches_cpu_twin(cuda_device, monkeypatch, tmp_path):
+    """The default provider lives on the card; a reconnect storm through
+    the device diff kernel and a checkpoint answer byte for byte as the
+    CPU twin does, and the WAL recovers on the card."""
+    from yjs_tpu_torch.lib0.decoding import Decoder
+    from yjs_tpu_torch.lib0.encoding import Encoder
+    from yjs_tpu_torch.provider import TpuProvider
+    from yjs_tpu_torch.sync import protocol
+
+    monkeypatch.setenv("YTPU_SYNC_DEVICE", "1")
+    prov = TpuProvider(4, wal_dir=str(tmp_path / "card"))
+    twin = TpuProvider(4, device="cpu", wal_dir=str(tmp_path / "cpu"))
+    assert prov.engine.device.type == "cuda"
+    clients = []
+    for i, ups in enumerate(edit_trace(seed) for seed in range(4)):
+        for u in ups:
+            prov.receive_update(f"r{i}", u)
+            twin.receive_update(f"r{i}", u)
+        d = Y.Doc(gc=False)
+        for u in ups[: len(ups) // 2 * (i % 2)]:
+            Y.apply_update(d, u)
+        clients.append(d)
+    msgs = []
+    for i, d in enumerate(clients):
+        enc = Encoder()
+        protocol.write_sync_step1(enc, d)
+        msgs.append((f"r{i}", enc.to_bytes()))
+    before = kernels.launches["diff_mask"]
+    replies = prov.handle_sync_step1_batch(msgs)
+    assert kernels.launches["diff_mask"] == before + 1
+    assert replies == twin.handle_sync_step1_batch(msgs)
+    for i, (d, reply) in enumerate(zip(clients, replies)):
+        protocol.read_sync_message(Decoder(reply), Encoder(), d)
+        assert d.get_text("text").to_string() == prov.text(f"r{i}")
+    svs = prov.engine.state_vectors_batched(list(range(4)))
+    assert svs == [prov.engine.state_vector(i) for i in range(4)]
+    prov.checkpoint()
+    twin.checkpoint()
+    prov.wal.abandon()
+    rec = TpuProvider.recover(str(tmp_path / "card"))
+    assert rec.engine.device.type == "cuda"
+    for i in range(4):
+        assert rec.text(f"r{i}") == twin.text(f"r{i}")

@@ -239,11 +239,6 @@ def test_unported_paths_raise(monkeypatch):
         eng.flush()
     monkeypatch.delenv("YTPU_KERNEL")
     eng.flush()
-    with pytest.raises(NotImplementedError, match="K9"):
-        eng.state_vectors_batched([0])
-    monkeypatch.setenv("YTPU_SYNC_DEVICE", "1")
-    with pytest.raises(NotImplementedError, match="K10"):
-        eng.sync_step2_batch([(0, None)])
 
 
 def test_default_device_is_cuda():

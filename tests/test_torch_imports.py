@@ -35,8 +35,13 @@ sys.meta_path.insert(0, Refuse())
 import yjs_tpu_torch, yjs_tpu_torch.ops, yjs_tpu_torch.ops.kernels
 import yjs_tpu_torch.ops.carry, yjs_tpu_torch.ops._cuda
 import yjs_tpu_torch.obs.prof, yjs_tpu_torch.obs.capacity
+import yjs_tpu_torch.persistence, yjs_tpu_torch.sync, yjs_tpu_torch.tiering
 from yjs_tpu_torch.ops import BatchEngine
+from yjs_tpu_torch.provider import TpuProvider
 eng = BatchEngine(2, device="cpu")
+prov = TpuProvider(2, device="cpu")
+prov.receive_update("r", yjs_tpu_torch.encode_state_as_update(yjs_tpu_torch.Doc()))
+prov.flush()
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {banned!r})
 assert not leaked, leaked
 print("ok")

@@ -29,7 +29,9 @@ from ..buildlib import build_shared
 CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
-SOURCES = ("apply_lanes", "scatter_rows", "list_ranks")
+SOURCES = (
+    "apply_lanes", "scatter_rows", "list_ranks", "state_vector", "diff_mask",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +45,8 @@ _ENTRIES = {
     "ytpu_apply_lanes_i16": ("apply_lanes", [_vp] * 5 + [_int] * 7 + [_vp]),
     "ytpu_scatter_rows": ("scatter_rows", [_vp] * 7 + [_int] * 4 + [_vp]),
     "ytpu_list_ranks": ("list_ranks", [_vp] * 4 + [_int] * 3 + [_vp]),
+    "ytpu_state_vector": ("state_vector", [_vp] * 3 + [_int] * 3 + [_vp]),
+    "ytpu_diff_mask": ("diff_mask", [_vp] * 6 + [_int] * 3 + [_vp]),
 }
 
 _fns: dict | None = None
@@ -150,3 +154,14 @@ def scatter_rows(idx, new_right, new_deleted, new_starts, right, deleted,
 def list_ranks(right, valid, scratch, out, b, n1, rounds) -> None:
     _call("ytpu_list_ranks", right.device, _p(right), _p(valid),
           _p(scratch), _p(out), b, n1, rounds)
+
+
+def state_vector(row_slot, row_end, sv, b, n, n_slots) -> None:
+    _call("ytpu_state_vector", row_slot.device, _p(row_slot), _p(row_end),
+          _p(sv), b, n, n_slots)
+
+
+def diff_mask(row_slot, row_clock, row_end, sv, needed, offset, b, n,
+              n_slots) -> None:
+    _call("ytpu_diff_mask", row_slot.device, _p(row_slot), _p(row_clock),
+          _p(row_end), _p(sv), _p(needed), _p(offset), b, n, n_slots)

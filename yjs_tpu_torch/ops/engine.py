@@ -13,10 +13,11 @@ seam.
 
 The resident tables are torch tensors on ``self.device``: a CUDA device
 unless the caller asks for ``device="cpu"`` (the tests do), where the
-kernels' plain PyTorch versions serve.  The on-device YATA lanes
-(``YTPU_KERNEL=levels|seq``), the mesh, and the batched state-vector and
-diff kernels are later slices of the port and raise
-``NotImplementedError``.
+kernels' plain PyTorch versions serve.  The batched sync paths
+(``state_vectors_batched`` and the device branch of
+``sync_step2_batch``) run the state-vector and diff-mask kernels.  The
+on-device YATA lanes (``YTPU_KERNEL=levels|seq``) and the mesh are later
+slices of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -2376,31 +2377,63 @@ class BatchEngine:
 
     # -- batched sync kernels ----------------------------------------------
 
-    def state_vectors_batched(self, docs: list[int]) -> list[dict[int, int]]:
-        """State vectors for many docs in ONE batched device dispatch.
-        Fallback docs are served by the CPU core; the device kernel (K9,
-        ``state_vector_kernel``) is not ported yet and raises for any
-        device-resident doc."""
-        out: list[dict[int, int] | None] = [None] * len(docs)
+    def _sync_columns(self, docs: list[int]):
+        """Stacked (row_slot, row_clock, row_end) columns for a doc subset,
+        padded to the widest doc (NULL rows are masked by the kernels).
+        Served from each mirror's cached numpy columns."""
+        n = max((self.mirrors[i].n_rows for i in docs), default=0)
+        n = max(n, 1)
+        k = len(docs)
+        row_slot = np.full((k, n), NULL, np.int32)
+        row_clock = np.zeros((k, n), np.int32)
+        row_end = np.zeros((k, n), np.int32)
         for j, i in enumerate(docs):
-            if i not in self.fallback:
-                raise _not_ported(
-                    "state_vectors_batched (kernel K9, state_vector_kernel)",
-                    "ROADMAP queue 1, item 8",
-                )
-            out[j] = self.state_vector(i)
+            m = self.mirrors[i]
+            r = m.n_rows
+            if r:
+                c = m._np_cols()
+                row_slot[j, :r] = c["slot"]
+                row_clock[j, :r] = c["clock"]
+                row_end[j, :r] = c["row_end"]
+        return row_slot, row_clock, row_end
+
+    def state_vectors_batched(self, docs: list[int]) -> list[dict[int, int]]:
+        """State vectors for many docs in ONE ``state_vector_kernel``
+        launch (the segment-max of StructStore.getStateVector batched
+        over the doc axis).  Results align positionally with ``docs``;
+        fallback docs are served by the CPU core."""
+        out: list[dict[int, int] | None] = [None] * len(docs)
+        dev = [(j, i) for j, i in enumerate(docs) if i not in self.fallback]
+        for j, i in enumerate(docs):
+            if i in self.fallback:
+                out[j] = self.state_vector(i)
+        if dev:
+            dev_docs = [i for _, i in dev]
+            row_slot, _clock, row_end = self._sync_columns(dev_docs)
+            # bucket n_slots so client-count growth gives O(log) shapes
+            n_slots = _bucket(
+                max(1, max(len(self.mirrors[i].client_of_slot) for i in dev_docs)),
+                4,
+            )
+            sv = kernels.state_vector_kernel(
+                self._put_r(row_slot), self._put_r(row_end), n_slots
+            ).cpu().numpy()
+            for r, (j, i) in enumerate(dev):
+                m = self.mirrors[i]
+                out[j] = {
+                    m.client_of_slot[s]: int(sv[r, s])
+                    for s in range(len(m.client_of_slot))
+                    if sv[r, s] > 0
+                }
         return out
 
     def sync_step2_batch(
         self, requests: list[tuple[int, dict[int, int] | None]], v2: bool = False
     ) -> list[bytes]:
-        """Answer many sync-step-1 requests: (doc, remote state vector)
-        pairs in, diff updates out (reference encodeStateAsUpdate,
-        encoding.js:490-526, batched over the doc axis).  Fallback docs
-        are served by the CPU core, native mirrors by the C++ encoder.
-        The device diff branch (kernel K10, ``diff_mask_kernel``: Python
-        mirrors, or ``YTPU_SYNC_DEVICE=1``) is not ported yet and
-        raises."""
+        """Answer many sync-step-1 requests with ONE ``diff_mask_kernel``
+        launch: (doc, remote state vector) pairs in, diff updates out
+        (reference encodeStateAsUpdate, encoding.js:490-526, batched over
+        the doc axis).  Fallback docs are served by the CPU core."""
         replies: list[bytes | None] = [None] * len(requests)
         dev = [
             (j, i, sv) for j, (i, sv) in enumerate(requests) if i not in self.fallback
@@ -2417,7 +2450,9 @@ class BatchEngine:
                     enc_sv = e.to_bytes()
                 replies[j] = self.encode_state_as_update(i, enc_sv, v2=v2)
         # native mirrors answer straight from the C++ columns: one
-        # ymx_encode_diff(_v2) call per request, no device round trip
+        # ymx_encode_diff(_v2) call per request, no device round trip (the
+        # device diff kernel still serves Python-mirror engines and can be
+        # forced with YTPU_SYNC_DEVICE=1)
         if not os.environ.get("YTPU_SYNC_DEVICE"):
             rest = []
             for j, i, sv in dev:
@@ -2430,11 +2465,29 @@ class BatchEngine:
                     replies[j] = u
             dev = rest
         if dev:
-            raise _not_ported(
-                "the device branch of sync_step2_batch (kernel K10, "
-                "diff_mask_kernel)",
-                "ROADMAP queue 1, item 8",
+            docs = [i for _, i, _ in dev]
+            row_slot, row_clock, row_end = self._sync_columns(docs)
+            # not bucketed (state_vectors_batched buckets its n_slots)
+            n_slots = max(1, max(len(self.mirrors[i].client_of_slot) for i in docs))
+            sv_dense = np.zeros((len(dev), n_slots), np.int32)
+            for r, (_j, i, sv) in enumerate(dev):
+                m = self.mirrors[i]
+                for client, clock in (sv or {}).items():
+                    s = m.slot_of_client.get(client)
+                    if s is not None:
+                        sv_dense[r, s] = clock
+            needed, offset = kernels.diff_mask_kernel(
+                self._put_r(row_slot),
+                self._put_r(row_clock),
+                self._put_r(row_end),
+                self._put_r(sv_dense),
             )
+            needed = needed.cpu().numpy()
+            offset = offset.cpu().numpy()
+            for r, (j, i, _sv) in enumerate(dev):
+                replies[j] = self.mirrors[i].encode_masked_update(
+                    needed[r], offset[r], v2=v2
+                )
         return replies
 
     def encode_states_batched(

@@ -11,6 +11,14 @@ Three device programs carry the default flush of :class:`BatchEngine`:
   pointer doubling — exports that read the device tables back
   (``YTPU_EXPORT_DEVICE=1``).
 
+Two more serve the batched sync paths of the engine and the provider:
+
+- :func:`state_vector_kernel` reduces each doc's rows to its dense state
+  vector — ``BatchEngine.state_vectors_batched``;
+- :func:`diff_mask_kernel` marks the rows (and row suffixes) a remote
+  state vector is missing — the device branch of
+  ``BatchEngine.sync_step2_batch`` (reconnect storms, checkpoints).
+
 Each wrapper keeps the JAX package's signature and semantics
 (``yjs_tpu/ops/kernels.py``) and has a plain PyTorch version beside it
 (``*_plain``).  The wrapper dispatches on the device of the tensors it
@@ -41,7 +49,10 @@ from ..obs.prof import profiled
 NULL = -1
 
 # CUDA kernel launches per wrapper (chip_smoke.py zeroes and reads them)
-launches = {"apply_lanes": 0, "scatter_rows": 0, "list_ranks": 0}
+launches = {
+    "apply_lanes": 0, "scatter_rows": 0, "list_ranks": 0,
+    "state_vector": 0, "diff_mask": 0,
+}
 
 
 def reset_launches() -> None:
@@ -284,6 +295,103 @@ def list_ranks(right_link, valid):
         _cuda.list_ranks(right_link, valid, scratch, out, b, n1, _n_rounds(n1))
         launches["list_ranks"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K9 / K10: the batched sync kernels
+# ---------------------------------------------------------------------------
+
+INT32_MIN = -(2**31)
+
+
+def state_vector_kernel_plain(row_slot, row_end, n_slots: int):
+    """Plain PyTorch version of :func:`state_vector_kernel`: a zero
+    ``[B, n_slots+1]`` buffer takes each row's end by ``amax``; rows whose
+    slot lies outside ``[0, n_slots)`` land in the extra column, which is
+    cut off."""
+    b = row_slot.shape[0]
+    seg = torch.where(
+        (row_slot >= 0) & (row_slot < n_slots), row_slot,
+        torch.full_like(row_slot, n_slots),
+    ).long()
+    sv = torch.zeros((b, n_slots + 1), dtype=torch.int32,
+                     device=row_slot.device)
+    sv.scatter_reduce_(1, seg, row_end.to(torch.int32), "amax",
+                       include_self=True)
+    return sv[:, :n_slots].contiguous()
+
+
+@profiled("state_vector_kernel")
+def state_vector_kernel(row_slot, row_end, n_slots: int):
+    """Dense per-doc state vectors: ``sv[b, s] = max(0, max{row_end[b, r]
+    : row_slot[b, r] = s})`` — the segment-max recast of getStateVector
+    (StructStore.js:49-56).
+
+    row_slot: [B, N] i32 (NULL for unused rows), row_end: [B, N] i32;
+    rows with a slot outside ``[0, n_slots)`` are dropped.  Returns
+    ``[B, n_slots]`` i32."""
+    if not _on_cuda(row_slot, row_end):
+        return state_vector_kernel_plain(row_slot, row_end, n_slots)
+    from . import _cuda
+
+    _check(row_slot, "row_slot", (torch.int32,), 2)
+    _check(row_end, "row_end", (torch.int32,), 2)
+    if row_end.shape != row_slot.shape:
+        raise ValueError("row_end must match row_slot's shape")
+    b, n = row_slot.shape
+    sv = torch.zeros((b, n_slots), dtype=torch.int32, device=row_slot.device)
+    if b and n and n_slots:
+        _cuda.state_vector(row_slot, row_end, sv, b, n, n_slots)
+        launches["state_vector"] += 1
+    return sv
+
+
+def diff_mask_kernel_plain(row_slot, row_clock, row_end, sv):
+    """Plain PyTorch version of :func:`diff_mask_kernel`, with JAX's
+    gather rule: a slot at or past ``sv``'s width reads ``INT32_MIN``, and
+    ``remote - clock`` wraps in int32."""
+    n_slots = sv.shape[1]
+    safe = torch.where(row_slot >= 0, row_slot, torch.zeros_like(row_slot))
+    inb = safe < n_slots
+    remote = torch.gather(
+        sv, 1, torch.where(inb, safe, torch.zeros_like(safe)).long()
+    )
+    remote = torch.where(inb, remote, torch.full_like(remote, INT32_MIN))
+    needed = (row_slot >= 0) & (row_end > remote)
+    diff = remote.long() - row_clock.long()
+    diff = (diff + 2**31) % 2**32 - 2**31  # int32 wrap-around
+    offset = torch.clamp(diff, min=0).to(torch.int32)
+    return needed, torch.where(needed, offset, torch.zeros_like(offset))
+
+
+@profiled("diff_mask_kernel")
+def diff_mask_kernel(row_slot, row_clock, row_end, sv):
+    """Rows (or row suffixes) missing from a remote state vector: the
+    columnar filter of writeClientsStructs (encoding.js:94-116).
+
+    row_slot, row_clock, row_end: [B, N] i32; sv: [B, n_slots] i32.
+    Returns ``(needed [B, N] bool, offset [B, N] i32)``: offset > 0 means
+    the row must be written from that element offset (the
+    partial-first-struct rule, encoding.js:71-84)."""
+    if not _on_cuda(row_slot, row_clock, row_end, sv):
+        return diff_mask_kernel_plain(row_slot, row_clock, row_end, sv)
+    from . import _cuda
+
+    for t, name in ((row_slot, "row_slot"), (row_clock, "row_clock"),
+                    (row_end, "row_end"), (sv, "sv")):
+        _check(t, name, (torch.int32,), 2)
+    if row_clock.shape != row_slot.shape or row_end.shape != row_slot.shape:
+        raise ValueError("row columns disagree in shape")
+    b, n = row_slot.shape
+    if sv.shape[0] != b or sv.shape[1] < 1:
+        raise ValueError(f"sv must be [{b}, n_slots >= 1], got {tuple(sv.shape)}")
+    needed = torch.empty((b, n), dtype=torch.bool, device=row_slot.device)
+    offset = torch.empty((b, n), dtype=torch.int32, device=row_slot.device)
+    if b and n:
+        _cuda.diff_mask(row_slot, row_clock, row_end, sv, needed, offset,
+                        b, n, sv.shape[1])
+        launches["diff_mask"] += 1
+    return needed, offset
 
 
 # ---------------------------------------------------------------------------
