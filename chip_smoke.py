@@ -10,7 +10,7 @@ script exits non-zero:
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and
    power limit;
-2. build: the native plan core (g++) and the five CUDA kernels (one
+2. build: the native plan core (g++) and the seven CUDA sources (one
    nvcc per source, all at once), with build seconds and each kernel's
    registers and spills;
 3. main path: a room server's fleet, ``BatchEngine(n_docs=4096)`` on the
@@ -46,13 +46,32 @@ script exits non-zero:
      equals the twin's and sampled texts equal the CPU ``Doc``;
    with the host times of the storm's phases, the checkpoint and the
    recovery;
-5. kernels: each kernel against its plain version on the card at its
+5. YATA path: the on-device YATA lanes at the same width and on the same
+   bytes:
+   - ``YTPU_KERNEL=levels``: ``BatchEngine(4096)`` on the card beside a
+     CPU twin ``BatchEngine(4096, device="cpu")``; flush 1 (the traces),
+     then flush 2 (the edits, after compacting every doc of at least 512
+     rows); after each, the card's three tables and six resident static
+     columns equal the twin's byte for byte, untrimmed, its tables trimmed
+     to live rows equal the main path's apply engine's, and every doc's
+     current statics equal its mirror's ``static_columns()``; 32 sampled
+     docs export text and encoded state from the device tables, checked
+     against a CPU ``Doc``;
+   - ``YTPU_KERNEL=seq``: ``BatchEngine(4096)`` on the card through the
+     same flushes, its trimmed tables equal to the levels and the apply
+     engines';
+   with each flush's host time split into plan, pack, statics (host pack;
+   H2D and scatter), dispatch, emit and the closing synchronise;
+6. kernels: each kernel against its plain version on the card at its
    path's largest shapes (exact), with times from CUDA events (``ms``:
-   per call, launch gaps included), device time from ``torch.profiler``
-   (``device_ms``) and the byte bound, printed as one
+   per call, launch gaps included; the YATA steps restore their tables
+   before each timed launch and time it alone), device time from
+   ``torch.profiler`` (``device_ms``) and the byte bound, printed as one
    ``{"kernels": [...]}`` line; each row's ``launches`` is its path's
    count (counts are zeroed just before each path and read just after);
-6. the last line: ``{"ok": true, "device": {...}}``.
+   the YATA steps' rows add the longest per-doc chain of dependent loads
+   (``dep_chain``);
+7. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -81,6 +100,7 @@ N_HYDRATED = 16
 N_EXPORTED = 32
 N_SAMPLED_CLIENTS = 32
 TIMED_LAUNCHES = 50
+YATA_TIMED_LAUNCHES = 20
 
 
 def log(*parts) -> None:
@@ -173,6 +193,29 @@ PROVIDER_KERNELS = (
 )
 
 
+def _first_tensor(x):
+    if isinstance(x, torch.Tensor):
+        return x
+    items = x.values() if isinstance(x, dict) else (
+        x if isinstance(x, (tuple, list)) else ()
+    )
+    for item in items:
+        t = _first_tensor(item)
+        if t is not None:
+            return t
+    return None
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_clone(v) for v in x)
+    return x
+
+
 class Capture:
     """Keeps the largest input each kernel wrapper saw on a path (for
     the kernel phase), delegating every call to the wrapper itself."""
@@ -193,14 +236,9 @@ class Capture:
             def wrapped(*args, _orig=orig, _name=name, _size=size):
                 best = self.seen.get(_name)
                 # the CPU twin's calls are not kept
-                if args[1].device.type == self.device_type:
+                if _first_tensor(args).device.type == self.device_type:
                     if best is None or _size(args) > _size(best):
-                        self.seen[_name] = tuple(
-                            tuple(t.clone() for t in a)
-                            if isinstance(a, tuple)
-                            else (a.clone() if isinstance(a, torch.Tensor) else a)
-                            for a in args
-                        )
+                        self.seen[_name] = _clone(args)
                 return _orig(*args)
 
             setattr(k, name, wrapped)
@@ -242,10 +280,26 @@ def warm_up(trace: bytes) -> None:
     eng.queue_update(0, trace)
     eng.flush()
     eng.text(0)
+    saved = os.environ.get("YTPU_KERNEL")
+    try:
+        for mode in ("levels", "seq"):
+            os.environ["YTPU_KERNEL"] = mode
+            eng = BatchEngine(2, device="cuda")
+            eng.queue_update(0, trace)
+            eng.flush()
+    finally:
+        restore_env("YTPU_KERNEL", saved)
     one = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
     K.state_vector_kernel(one, one, 1)
     K.diff_mask_kernel(one, one, one, one)
     torch.cuda.synchronize()
+
+
+def restore_env(name: str, value) -> None:
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
 
 
 def seeded_edits(Y, traces: list[bytes]) -> dict[int, list[bytes]]:
@@ -260,6 +314,7 @@ def main_path(device: str, n_docs: int, traces: list[bytes],
     figures.  Exports read the device tables (YTPU_EXPORT_DEVICE=1)."""
     import yjs_tpu_torch as Y
     from yjs_tpu_torch.ops import BatchEngine
+    from yjs_tpu_torch.ops.carry import trim_tables
 
     os.environ["YTPU_EXPORT_DEVICE"] = "1"
     eng = BatchEngine(n_docs, device=device)
@@ -276,6 +331,8 @@ def main_path(device: str, n_docs: int, traces: list[bytes],
     m1 = dict(eng.last_flush_metrics)
     elements = sum(sum(eng.state_vector(i).values()) for i in range(n_docs))
     assert_twins(eng, twin, "flush 1")
+    # each flush's tables trimmed to live rows: the YATA lanes' yardstick
+    trimmed = [trim_tables(eng)]
 
     # flush 2: edits of N_EDITED traces to every doc holding them, after
     # compaction of every doc of at least 512 rows
@@ -292,6 +349,7 @@ def main_path(device: str, n_docs: int, traces: list[bytes],
     check(n_compacted > 0, "flush 2 compacted no doc")
     check(twin.last_compaction == eng.last_compaction, "compaction stats differ")
     assert_twins(eng, twin, "flush 2")
+    trimmed.append(trim_tables(eng))
 
     # warm-tier round trip (deferred scatter_rows on the next read-back)
     gen = random.Random(1)
@@ -328,7 +386,7 @@ def main_path(device: str, n_docs: int, traces: list[bytes],
     return {
         "t_flush1_s": t1, "t_flush2_s": t2, "elements": elements,
         "flush1": m1, "flush2": m2, "n_compacted": n_compacted,
-        "table_bytes": table_bytes,
+        "table_bytes": table_bytes, "trimmed": trimmed,
     }
 
 
@@ -557,6 +615,235 @@ def provider_path(n_docs: int, traces: list[bytes],
 # -- phase 5 ----------------------------------------------------------------------
 
 
+YATA_KERNELS = (
+    ("scatter_statics", lambda a: a[1].numel()),
+    ("batch_step", lambda a: a[3].numel()),
+    ("batch_step_levels", lambda a: a[3].numel()),
+)
+
+
+class StaticsTimer:
+    """Host time of the statics upload inside a flush: the whole of
+    ``_upload_statics`` (host pack, H2D, scatter kernel) and its host
+    pack ``_statics_delta``, each between two synchronises."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.t = {"upload": 0.0, "delta": 0.0}
+        self.rows = self.lanes = 0
+
+    def _wrap(self, key, fn):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.t[key] += time.perf_counter() - t0
+            if key == "delta" and out is not None:
+                # padding lanes target row cap, which no real row reaches
+                self.rows += int((out[1] != self.eng._cap).sum())
+                self.lanes += out.shape[1]
+            return out
+
+        return timed
+
+    def __enter__(self):
+        self.eng._upload_statics = self._wrap("upload", self.eng._upload_statics)
+        self.eng._statics_delta = self._wrap("delta", self.eng._statics_delta)
+        return self
+
+    def __exit__(self, *exc):
+        for name in ("_upload_statics", "_statics_delta"):
+            delattr(self.eng, name)
+        return False
+
+
+def yata_flush(eng) -> dict:
+    """One timed flush of an engine on the card, split into plan, pack
+    (without the statics), statics (host pack; H2D and scatter),
+    dispatch, emit and the closing synchronise."""
+    with StaticsTimer(eng) as st:
+        wall = timed_flush(eng)
+    m = dict(eng.last_flush_metrics)
+    return {
+        "wall": wall, "plan": m["t_plan_s"] + m["t_compact_s"],
+        "pack": m["t_pack_s"] - st.t["upload"],
+        "statics_pack": st.t["delta"],
+        "statics_h2d_scatter": st.t["upload"] - st.t["delta"],
+        "statics_rows": st.rows, "statics_lanes": st.lanes,
+        "dispatch": m["t_dispatch_s"], "emit": m["t_emit_s"],
+        "sync": wall - m["t_total_s"], "n_levels": m["n_levels"],
+        "level_width": m["level_width"], "occupancy": m["schedule_occupancy"],
+        "realloc_bytes": m["realloc_bytes"],
+    }
+
+
+def log_yata_flush(lane: str, name: str, f: dict, smi: str) -> None:
+    log(f"[yata] {lane} {name} ({smi}): wall {f['wall']:.3f}s = plan "
+        f"{f['plan']:.3f} + pack {f['pack']:.3f} + statics host pack "
+        f"{f['statics_pack']:.3f} ({f['statics_rows']} rows in "
+        f"{f['statics_lanes']} lanes) + statics H2D "
+        f"and scatter {f['statics_h2d_scatter']:.3f} + dispatch "
+        f"{f['dispatch']:.3f} + emit {f['emit']:.3f} + closing sync "
+        f"{f['sync']:.3f}; L={f['n_levels']} W={f['level_width']} "
+        f"occupancy {f['occupancy']:.4f}")
+
+
+def assert_yata_twins(eng, twin, what: str) -> None:
+    """Untrimmed, byte for byte: the three tables and six statics."""
+    from yjs_tpu_torch.ops.kernels import STATIC_KEYS
+
+    assert_twins(eng, twin, what, "yata")
+    for key in STATIC_KEYS:
+        a, b = eng._statics[key], twin._statics[key]
+        check(a.shape == b.shape and torch.equal(a.cpu(), b),
+              f"{what}: static column {key} differs from the CPU twin")
+    log(f"[yata] {what}: the six static columns equal the CPU twin "
+        f"({tuple(eng._statics['client_key'].shape)} each)")
+
+
+def assert_trimmed(eng, want: list, what: str) -> list:
+    """Tables trimmed to each doc's live rows and segments equal
+    ``want`` (another lane's, after the same flushes)."""
+    from yjs_tpu_torch.ops.carry import trim_tables
+
+    got = trim_tables(eng)
+    check(len(got) == len(want), f"{what}: doc counts differ")
+    for i, (g, w) in enumerate(zip(got, want)):
+        check((g is None) == (w is None), f"{what}: doc {i} served differently")
+        if g is not None:
+            check(all(np.array_equal(a, b) for a, b in zip(g, w)),
+                  f"{what}: doc {i}'s trimmed tables differ")
+    log(f"[yata] {what}: trimmed tables equal")
+    return got
+
+
+def assert_statics_current(eng, must: set, what: str) -> None:
+    """Every doc whose statics are current (uploaded rows == its row
+    count) holds its mirror's static columns; the docs in ``must`` are
+    current.  A doc compacted since its last device-lane flush re-uploads
+    lazily, on its next one."""
+    from yjs_tpu_torch.ops.kernels import STATIC_KEYS
+
+    host = {k: eng._statics[k].cpu().numpy() for k in STATIC_KEYS}
+    current = 0
+    for i, m in enumerate(eng.mirrors):
+        n = m.n_rows
+        if eng._uploaded_rows[i] != n:
+            check(i not in must, f"{what}: doc {i}'s statics are not current")
+            continue
+        cols = m.static_columns()
+        cols["client_key"] = cols["client_key"].astype(np.uint32).view(np.int32)
+        for k in STATIC_KEYS:
+            check(np.array_equal(host[k][i, :n], cols[k]),
+                  f"{what}: doc {i}'s {k} differs from its mirror")
+        current += 1
+    log(f"[yata] {what}: statics of {current} docs equal their mirrors' "
+        f"static_columns(); {len(eng.mirrors) - current} await a lazy "
+        "re-upload after compaction")
+
+
+def yata_path(traces: list[bytes], edits: dict[int, list[bytes]],
+              apply_trimmed: list, smi: str) -> dict:
+    """The on-device YATA lanes at the main path's width: a levels engine
+    on the card beside a CPU twin, then a seq engine on the card, through
+    the main path's two flushes (flush 2 after the compaction of every
+    doc of at least 512 rows); returns the flush splits."""
+    import yjs_tpu_torch as Y
+    from yjs_tpu_torch.ops import BatchEngine
+
+    n_docs = N_DOCS
+    held = [traces[i % len(traces)] for i in range(n_docs)]
+    log_of = {i: [held[i]] for i in range(n_docs)}
+    edited = set()
+    for t, ups in edits.items():
+        for i in range(t, n_docs, len(traces)):
+            log_of[i].extend(ups)
+            edited.add(i)
+    saved = os.environ.get("YTPU_KERNEL")
+    out = {}
+    try:
+        os.environ["YTPU_KERNEL"] = "levels"
+        eng = BatchEngine(n_docs, device="cuda")
+        twin = BatchEngine(n_docs, device="cpu")
+        for e in (eng, twin):
+            for i in range(n_docs):
+                e.queue_update(i, held[i])
+        out["levels1"] = yata_flush(eng)
+        t0 = time.perf_counter()
+        twin.flush()
+        out["twin1"] = time.perf_counter() - t0
+        log_yata_flush("levels", "flush 1", out["levels1"], smi)
+        assert_yata_twins(eng, twin, "levels flush 1")
+        lev = [assert_trimmed(eng, apply_trimmed[0],
+                              "levels flush 1 against the apply lane")]
+        assert_statics_current(eng, set(range(n_docs)), "levels flush 1")
+
+        for e in (eng, twin):
+            for t, ups in edits.items():
+                for i in range(t, n_docs, len(traces)):
+                    for u in ups:
+                        e.queue_update(i, u)
+        out["levels2"] = yata_flush(eng)
+        t0 = time.perf_counter()
+        twin.flush()
+        out["twin2"] = time.perf_counter() - t0
+        out["n_compacted"] = len(eng.last_compaction or [])
+        check(out["n_compacted"] > 0, "levels flush 2 compacted no doc")
+        check(twin.last_compaction == eng.last_compaction,
+              "levels compaction stats differ from the twin's")
+        log_yata_flush("levels", "flush 2", out["levels2"], smi)
+        assert_yata_twins(eng, twin, "levels flush 2")
+        lev.append(assert_trimmed(eng, apply_trimmed[1],
+                                  "levels flush 2 against the apply lane"))
+        assert_statics_current(eng, edited, "levels flush 2")
+        del twin
+
+        # exports from the levels engine's device tables
+        gen = random.Random(3)
+        others = sorted(set(range(n_docs)) - edited)
+        half = N_EXPORTED // 2
+        sample = sorted(gen.sample(sorted(edited), min(half, len(edited)))
+                        + gen.sample(others, min(half, len(others))))
+        for i in sample:
+            doc = Y.Doc(gc=False)
+            for u in log_of[i]:
+                Y.apply_update(doc, u)
+            check(eng.text(i) == doc.get_text("text").to_string(),
+                  f"doc {i}: levels text differs from the CPU Doc")
+            check(Y.merge_updates([eng.encode_state_as_update(i)])
+                  == Y.merge_updates([Y.encode_state_as_update(doc)]),
+                  f"doc {i}: levels encoded state differs from the CPU Doc")
+        log(f"[yata] {len(sample)} sampled docs: levels texts and encoded "
+            "states equal the CPU Doc")
+        out["statics_bytes"] = int(sum(v.nbytes for v in eng._statics.values()))
+        del eng
+
+        os.environ["YTPU_KERNEL"] = "seq"
+        eng = BatchEngine(n_docs, device="cuda")
+        for i in range(n_docs):
+            eng.queue_update(i, held[i])
+        out["seq1"] = yata_flush(eng)
+        log_yata_flush("seq", "flush 1", out["seq1"], smi)
+        assert_trimmed(eng, lev[0], "seq flush 1 against the levels lane")
+        assert_trimmed(eng, apply_trimmed[0], "seq flush 1 against the apply lane")
+        for t, ups in edits.items():
+            for i in range(t, n_docs, len(traces)):
+                for u in ups:
+                    eng.queue_update(i, u)
+        out["seq2"] = yata_flush(eng)
+        log_yata_flush("seq", "flush 2", out["seq2"], smi)
+        assert_trimmed(eng, lev[1], "seq flush 2 against the levels lane")
+        assert_trimmed(eng, apply_trimmed[1], "seq flush 2 against the apply lane")
+        del eng
+    finally:
+        restore_env("YTPU_KERNEL", saved)
+    return out
+
+
+# -- phase 6 ----------------------------------------------------------------------
+
+
 def cuda_ms(fn, n: int = TIMED_LAUNCHES) -> float:
     """Mean ms of ``fn()`` over ``n`` calls, from CUDA events, after a
     warm-up call."""
@@ -572,24 +859,30 @@ def cuda_ms(fn, n: int = TIMED_LAUNCHES) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_ms(fn, n: int = TIMED_LAUNCHES):
+def device_ms(fn, n: int = TIMED_LAUNCHES, restore=None):
     """Mean device time per call of ``fn()``'s kernels, from
     ``torch.profiler`` (None when the profiler records no device time):
     set beside :func:`cuda_ms`, it separates kernel time from launch
-    gaps."""
+    gaps.  ``restore()``, run before every call, puts back tables the
+    kernel writes in place; its device-to-device copies are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if restore is not None:
+        restore()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
+            if restore is not None:
+                restore()
             fn()
         torch.cuda.synchronize()
     us = sum(
         e.self_device_time_total for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA
         and not getattr(e, "is_user_annotation", False)
+        and not (restore is not None and e.key.startswith("Memcpy"))
     )
     return us / 1e3 / n if us > 0 else None
 
@@ -619,8 +912,148 @@ def apply_lanes_bytes(lanes: torch.Tensor, b: int, widths, n1: int, s1: int) -> 
             + inb(dl, n1))
 
 
+def cuda_ms_restored(launch, restore, n: int = YATA_TIMED_LAUNCHES) -> float:
+    """Mean ms of ``launch()`` over ``n`` calls from CUDA events recorded
+    around each launch alone, after a warm-up; ``restore()`` puts the
+    tables back before every launch (the kernels write them in place)."""
+    restore()
+    launch()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(n):
+        restore()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / n
+
+
+def once_ms(fn) -> float:
+    """ms of one call of ``fn()`` from CUDA events (the plain YATA versions
+    take seconds on the card: one timed call after the comparison call)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def yata_bytes(name: str, args, stats) -> int:
+    """The bytes the step must move on these inputs: every schedule input
+    read once; per integrated item (every seq entry, every deferred level
+    lane) its six statics (24 B), three link or head reads and two link
+    writes (20 B); per conflict-scan step the visited row's six statics,
+    its link and its visit mark read and written (36 B); per level lane
+    slot the gap read of a real lane (4 B) and the two link writes every
+    slot makes, real or scratch (8 B); per split three link reads or
+    writes and two deleted bits (14 B); one byte per delete."""
+    splits, sched, dels = args[2], args[3], args[4]
+    nbytes = sum(t.nbytes for t in args[2:] if isinstance(t, torch.Tensor))
+    real = int((sched[..., 0] >= 0).sum())
+    n_splits = int((splits[..., 0] >= 0).sum())
+    n_dels = int(((dels >= 0) & (dels < args[1][0].shape[1])).sum())
+    steps = int(stats["scan_steps"].sum())
+    if name == "batch_step":
+        items = real
+    else:
+        items = int(stats["deferred"].sum())
+        nbytes += 4 * real + 8 * sched[..., 0].numel()
+    return nbytes + 44 * items + 36 * steps + 14 * n_splits + n_dels
+
+
+def yata_rows(yseen: dict, ylaunches: dict) -> list[dict]:
+    """K3, K5 and K6 against their plain versions at the largest input the
+    YATA path gave each (tables as they were before that call)."""
+    from yjs_tpu_torch.ops import kernels as K
+
+    rows = []
+    # scatter_statics at flush 1's full upload
+    statics, packed = yseen["scatter_statics"]
+    got = K.scatter_statics(_clone(statics), packed)
+    ref = K.scatter_statics_plain(_clone(statics), packed)
+    err = max(max_abs_err(got[k], ref[k]) for k in K.STATIC_KEYS)
+    base = _clone(statics)
+    ms = cuda_ms(lambda: K.scatter_statics(base, packed))
+    dev_ms = device_ms(lambda: K.scatter_statics(base, packed))
+    plain_ms = cuda_ms(lambda: K.scatter_statics_plain(base, packed), 5)
+    d, r = packed[0].long(), packed[1].long()
+
+    def library():
+        for j, key in enumerate(K.STATIC_KEYS):
+            base[key].index_put_((d, r), packed[2 + j])
+
+    library()
+    check(all(torch.equal(base[k], ref[k]) for k in K.STATIC_KEYS),
+          "index_put_ x6 disagrees with the plain statics scatter")
+    lib_ms = cuda_ms(library)
+    b, n1 = statics["client_key"].shape
+    k = packed.shape[1]
+    rows.append({
+        "name": "scatter_statics", "route": "cuda",
+        "source": "yjs_tpu_torch/csrc/statics.cu",
+        "replaces": "yjs_tpu/ops/engine.py:152",
+        "shape": f"K={k} B={b} N+1={n1}", "path": "yata",
+        "launches": ylaunches["scatter_statics"], "max_abs_err": err,
+        "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "bound_ms": (packed.nbytes + 24 * k) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": lib_ms,
+    })
+
+    # batch_step and batch_step_levels at their largest schedule
+    for name, plain, source, line in (
+        ("batch_step", K.batch_step_plain, "yata.cu", 327),
+        ("batch_step_levels", K.batch_step_levels_plain, "yata.cu", 337),
+    ):
+        statics, dyn, *rest = yseen[name]
+        fn = getattr(K, name)
+        b, n1 = dyn[0].shape
+        got = fn(statics, _clone(dyn), *rest)
+        stats = K.new_yata_stats(b, dyn[0].device)
+        ref = _clone(dyn)
+        plain_ms = once_ms(lambda: plain(statics, ref, *rest, stats=stats))
+        err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+        work = _clone(dyn)
+
+        def restore(work=work, dyn=dyn):
+            for w, o in zip(work, dyn):
+                w.copy_(o)
+
+        def launch(fn=fn, statics=statics, work=work, rest=rest):
+            fn(statics, work, *rest)
+
+        ms = cuda_ms_restored(launch, restore)
+        dev_ms = device_ms(launch, YATA_TIMED_LAUNCHES, restore)
+        nbytes = yata_bytes(name, (statics, dyn, *rest), stats)
+        sched = rest[1]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"yjs_tpu_torch/csrc/{source}",
+            "replaces": f"yjs_tpu/ops/kernels.py:{line}",
+            "shape": f"B={b} N+1={n1} S+1={dyn[2].shape[1]} "
+                     f"schedule={tuple(sched.shape)}",
+            "path": "yata",
+            "launches": ylaunches[name], "max_abs_err": err,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+            # the longest per-doc chain of dependent loads (see
+            # kernels.new_yata_stats): the latency these kernels wait on
+            "dep_chain": int(stats["chain"].max()),
+            "scan_steps": int(stats["scan_steps"].sum()),
+            "deferred": int(stats["deferred"].sum()),
+        })
+    return rows
+
+
 def kernel_phase(seen: dict, launches: dict, pseen: dict,
-                 plaunches: dict) -> list[dict]:
+                 plaunches: dict, yseen: dict, ylaunches: dict) -> list[dict]:
     """Each kernel against its plain version on the largest input its
     path gave it (tables as they were before that call); ``launches`` and
     ``plaunches`` are the main and the provider path's counts."""
@@ -769,6 +1202,7 @@ def kernel_phase(seen: dict, launches: dict, pseen: dict,
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,
     })
+    rows.extend(yata_rows(yseen, ylaunches))
     torch.cuda.synchronize()
     # comparison and timing launches are not the main path's
     K.launches.update(saved)
@@ -848,7 +1282,23 @@ def main() -> int:
         f"checkpoint wall {times['checkpoint']:.3f}s; recover wall "
         f"{times['recover']:.3f}s, of which replay's validate_update "
         f"{times['recover_validate']:.3f}s ({dev['smi']})")
-    rows = kernel_phase(cap.seen, launches, pcap.seen, plaunches)
+
+    # the on-device YATA lanes at the main path's width
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with Capture(K, YATA_KERNELS) as ycap:
+        yfig = yata_path(traces, edits, figures["trimmed"], dev["smi"])
+    torch.cuda.synchronize()
+    ylaunches = dict(K.launches)
+    log(f"[yata] wall {time.perf_counter() - t0:.1f}s; launches {ylaunches}")
+    for name, _size in YATA_KERNELS:
+        check(ylaunches[name] > 0, f"{name} never launched on the YATA path")
+    log(f"[yata] CPU twin (plain kernels) flush 1 {yfig['twin1']:.3f}s, "
+        f"flush 2 {yfig['twin2']:.3f}s; statics {yfig['statics_bytes']} "
+        f"bytes; flush 2 compacted {yfig['n_compacted']} docs")
+    del figures["trimmed"]
+    rows = kernel_phase(cap.seen, launches, pcap.seen, plaunches, ycap.seen,
+                        ylaunches)
     log(json.dumps({"kernels": rows}))
     log(dev["smi"])
     print(json.dumps({"ok": True, "device": {

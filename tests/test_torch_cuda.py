@@ -381,3 +381,344 @@ def test_provider_on_card_matches_cpu_twin(cuda_device, monkeypatch, tmp_path):
     assert rec.engine.device.type == "cuda"
     for i in range(4):
         assert rec.text(f"r{i}") == twin.text(f"r{i}")
+
+
+# -- K3-K6: the on-device YATA lanes ---------------------------------------------
+
+# client ids below and at or above 2**31: YATA case 1 orders them unsigned
+YATA_CLIENTS = (7, 2**31 + 5, 2**32 - 3, 1000)
+
+
+def yata_session(seed: int, n_ops: int = 60, clients=YATA_CLIENTS,
+                 sync_p: float = 0.1) -> list[bytes]:
+    """Incremental updates of concurrent seeded editors that mostly type
+    near the start of the text (same-origin conflicts: YATA case 1) and
+    sometimes delete (run splits and deletes); rare full syncs."""
+    gen = random.Random(seed)
+    docs = []
+    for c in clients:
+        d = Y.Doc(gc=False)
+        d.client_id = c
+        docs.append(d)
+    out = []
+    for _ in range(n_ops):
+        d = docs[gen.randrange(len(docs))]
+        t = d.get_text("text")
+        sv = Y.encode_state_vector(d)
+        if len(t) > 3 and gen.random() < 0.25:
+            t.delete(gen.randrange(len(t) - 1), gen.randint(1, 2))
+        else:
+            pos = min(len(t), gen.randrange(3)) if gen.random() < 0.7 else (
+                gen.randrange(len(t) + 1)
+            )
+            t.insert(pos, gen.choice(["ab", "c", "xyz"]))
+        out.append(Y.encode_state_as_update(d, sv))
+        if gen.random() < sync_p:
+            for a in docs:
+                for b in docs:
+                    if a is not b:
+                        Y.apply_update(b, Y.encode_state_as_update(a))
+    return out
+
+
+YATA_FILLS = (
+    ("client_key", 0), ("origin_slot", NULL), ("origin_clock", 0),
+    ("right_slot", NULL), ("right_clock", 0), ("origin_row", NULL),
+)
+
+
+def yata_case(seed: int, b: int, n_stages: int = 3, n_ops: int = 60,
+              w_pad: int = 1, cap_min: int = 64, clients=YATA_CLIENTS,
+              uniform: bool = False):
+    """A seeded multi-flush YATA case built from the port's own planner:
+    doc i ingests its session in ``n_stages`` slices and plans each
+    (``DocMirror.prepare_step(want_levels=True)``), packed the way the
+    engine packs them.
+
+    Returns ``(cap, s1, stages)``: row capacity (``N+1 = cap+1``), the
+    starts width, and per stage a dict of numpy arrays — the six statics
+    ``[b, cap+1]`` (``client_key`` as its int32 bit pattern) after that
+    stage's plan, ``splits [b, S, 2]``, ``sched [b, M, 4]``, ``lv [b, L,
+    W, 8]`` (W at least ``w_pad``), ``dels [b, D]``, ``scratch [b]``;
+    ``uniform`` pads every stage to the same widths (one compiled shape
+    for the JAX kernels).  The Python mirror plans on the NumPy segment planner (its device mode
+    is not ported)."""
+    import os
+
+    from yjs_tpu_torch.ops.columns import DocMirror
+
+    saved = os.environ.get("YTPU_PLAN_SEGMENT")
+    os.environ["YTPU_PLAN_SEGMENT"] = "np"
+    try:
+        return _yata_case(seed, b, n_stages, n_ops, w_pad, cap_min, clients,
+                          uniform, DocMirror)
+    finally:
+        if saved is None:
+            del os.environ["YTPU_PLAN_SEGMENT"]
+        else:
+            os.environ["YTPU_PLAN_SEGMENT"] = saved
+
+
+def _yata_case(seed, b, n_stages, n_ops, w_pad, cap_min, clients, uniform,
+               DocMirror):
+    sessions = [yata_session(seed * 100 + i % 3, n_ops, clients)
+                for i in range(b)]
+    mirrors = [DocMirror("text") for _ in range(b)]
+    raw = []
+    for st in range(n_stages):
+        plans, cols, rows = [], [], []
+        for i, (m, ups) in enumerate(zip(mirrors, sessions)):
+            cut = len(ups) * st // n_stages, len(ups) * (st + 1) // n_stages
+            if i % 4 == 3:  # a doc that joins one flush late
+                cut = (0, cut[1]) if st == 1 else (cut if st else (0, 0))
+            for u in ups[cut[0] : cut[1]]:
+                m.ingest(u)
+            plans.append(m.prepare_step(want_levels=True))
+            cols.append(m.static_columns())
+            rows.append(m.n_rows)
+        raw.append((plans, cols, rows))
+    w = max([w_pad] + [p.max_width for pl, _c, _r in raw for p in pl])
+    n_rows = max(max(r) for _p, _c, r in raw)
+    cap = _bucket(max(cap_min, n_rows + 2 * w), 64)
+    s1 = _bucket(max(m.n_segs for m in mirrors), 8) + 1
+    every = [p for pl, _c, _r in raw for p in pl]
+
+    def width(vals, plans):
+        return max([1] + [len(v) for v in vals(every if uniform else plans)])
+
+    stages = []
+    for plans, cols, rows in raw:
+        st = {}
+        for key, fill in YATA_FILLS:
+            col = np.full((b, cap + 1), fill, np.int64)
+            for i, c in enumerate(cols):
+                col[i, : rows[i]] = c[key]
+            st[key] = col.astype(np.uint32).view(np.int32) if key == (
+                "client_key") else col.astype(np.int32)
+
+        n_lv = max([1] + [p.n_levels for p in (every if uniform else plans)])
+        splits = np.full(
+            (b, width(lambda ps: [p.splits for p in ps], plans), 2), NULL,
+            np.int32,
+        )
+        sched = np.full(
+            (b, width(lambda ps: [p.sched for p in ps], plans), 4), NULL,
+            np.int32,
+        )
+        dels = np.full(
+            (b, width(lambda ps: [p.delete_rows for p in ps], plans)), NULL,
+            np.int32,
+        )
+        lv = np.full((b, n_lv, w, 8), NULL, np.int32)
+        for i, p in enumerate(plans):
+            if len(p.splits):
+                splits[i, : len(p.splits)] = p.splits
+            if len(p.sched):
+                sched[i, : len(p.sched)] = p.sched
+            if len(p.delete_rows):
+                dels[i, : len(p.delete_rows)] = p.delete_rows
+            for j, entries in enumerate(p.packed_levels()):
+                if entries:
+                    lv[i, j, : len(entries)] = entries
+        st.update(splits=splits, sched=sched, lv=lv, dels=dels,
+                  scratch=np.asarray(rows, np.int32))
+        stages.append(st)
+    return cap, s1, stages
+
+
+def yata_tables(b: int, cap: int, s1: int):
+    """Fresh resident tables as the engine allocates them (numpy)."""
+    return (np.full((b, cap + 1), NULL, np.int32),
+            np.zeros((b, cap + 1), bool), np.full((b, s1), NULL, np.int32))
+
+
+def run_yata(kernel, stage, dyn, statics_of, to):
+    """One stage through ``kernel`` ("seq" or "levels" of the port's
+    ``kernels`` module, or a plain version): ``statics_of(stage)`` gives
+    the statics dict, ``to`` places a numpy array."""
+    statics = statics_of(stage)
+    if kernel in (kernels.batch_step, kernels.batch_step_plain):
+        return kernel(statics, dyn, to(stage["splits"]), to(stage["sched"]),
+                      to(stage["dels"]))
+    return kernel(statics, dyn, to(stage["splits"]), to(stage["lv"]),
+                  to(stage["dels"]), to(stage["scratch"]))
+
+
+@pytest.fixture
+def hang_guard():
+    """Ends the process with a traceback if a test outlives 300 s: a
+    kernel that loops forever blocks the interpreter inside a CUDA call,
+    where no Python-level timeout can reach it."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(300, exit=True)
+    yield
+    faulthandler.cancel_dump_traceback_later()
+
+
+def statics_case(seed: int, b: int, n1: int, k: int):
+    """One seeded K3 case: six columns and a packed ``[8, k]`` block whose
+    real lanes hit unique (doc, row) targets below row n1-2; the tail are
+    padding lanes writing the fills to (0, n1-1); of the real lanes, one
+    targets an out-of-range row and one an out-of-range doc (dropped),
+    one row -2 (wrapped to n1-2, which no other lane targets)."""
+    g = np.random.default_rng(seed)
+    cols = [g.integers(-1, n1, size=(b, n1)).astype(np.int32) for _ in range(6)]
+    real = max(0, k - 5)
+    flat = g.choice(b * (n1 - 2), size=real, replace=False)
+    packed = np.empty((8, k), np.int64)
+    packed[0, :real], packed[1, :real] = flat // (n1 - 2), flat % (n1 - 2)
+    packed[2:, :real] = g.integers(-(2**31), 2**31, size=(6, real))
+    packed[0, real:], packed[1, real:] = 0, n1 - 1
+    for j, (_key, fill) in enumerate(YATA_FILLS):
+        packed[2 + j, real:] = fill
+    if real >= 3:
+        packed[1, 0] = n1 + 3   # dropped
+        packed[0, 1] = b + 1    # dropped
+        packed[1, 2] = -2       # wraps to row n1-2
+    return cols, packed.astype(np.int32)
+
+
+def _statics_dict(cols):
+    return dict(zip(kernels.STATIC_KEYS, cols))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 65, 8), (3, 129, 200), (64, 2049, 70000)])
+def test_scatter_statics_kernel_matches_plain(cuda_device, shape):
+    b, n1, k = shape
+    cols, packed = statics_case(23 + b, b, n1, k)
+    ref = kernels.scatter_statics_plain(
+        _statics_dict(_torch(cols, cuda_device)),
+        torch.from_numpy(packed).to(cuda_device),
+    )
+    before = kernels.launches["scatter_statics"]
+    got = kernels.scatter_statics(
+        _statics_dict(_torch(cols, cuda_device)),
+        torch.from_numpy(packed).to(cuda_device),
+    )
+    torch.cuda.synchronize()
+    assert kernels.launches["scatter_statics"] == before + 1
+    for key in kernels.STATIC_KEYS:
+        assert torch.equal(ref[key], got[key]), key
+
+
+# (b, w_pad, cap_min, clients): W of 1, 33 and 2048 (the thread stride
+# over lanes), a visit row past 48 KB (cap_min), small client ids only
+YATA_SHAPES = [
+    (4, 1, 64, YATA_CLIENTS),
+    (3, 33, 64, YATA_CLIENTS),
+    (2, 2048, 64, YATA_CLIENTS),
+    (2, 1, 16384, YATA_CLIENTS),
+    (5, 1, 64, (11, 12, 13)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epoch_max", [None, 40])
+@pytest.mark.parametrize("shape", YATA_SHAPES)
+def test_yata_kernels_match_plain(cuda_device, hang_guard, shape, epoch_max,
+                                  monkeypatch):
+    """K5 and K6 against their plain versions, flush by flush, on the same
+    tables; ``epoch_max`` 40 forces the visit-epoch restart often."""
+    if epoch_max is not None:
+        monkeypatch.setattr(kernels, "EPOCH_MAX", epoch_max)
+    b, w_pad, cap_min, clients = shape
+    cap, s1, stages = yata_case(31 + b, b, w_pad=w_pad, cap_min=cap_min,
+                                clients=clients)
+
+    def to(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+
+    def statics_of(stage):
+        return {k: to(stage[k]) for k in kernels.STATIC_KEYS}
+
+    for kernel, plain, name in (
+        (kernels.batch_step, kernels.batch_step_plain, "batch_step"),
+        (kernels.batch_step_levels, kernels.batch_step_levels_plain,
+         "batch_step_levels"),
+    ):
+        ref = _torch(yata_tables(b, cap, s1), cuda_device)
+        got = _torch(yata_tables(b, cap, s1), cuda_device)
+        for stage in stages:
+            run_yata(plain, stage, ref, statics_of, to)
+            before = kernels.launches[name]
+            out = run_yata(kernel, stage, got, statics_of, to)
+            torch.cuda.synchronize()
+            assert kernels.launches[name] == before + 1
+            assert all(o is g for o, g in zip(out, got))
+            for r, o in zip(ref, got):
+                assert torch.equal(r, o), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [0, 3])
+def test_yata_kernels_on_an_empty_schedule(cuda_device, hang_guard, levels):
+    """No work: the tables come back untouched, apart from the NULL writes
+    the level kernel's masked lanes make to the scratch rows."""
+    b, cap, s1, w = 3, 63, 9, 4
+    tables = yata_tables(b, cap, s1)
+    stage = {
+        "splits": np.full((b, 1, 2), NULL, np.int32),
+        "sched": np.full((b, levels, 4), NULL, np.int32),
+        "lv": np.full((b, levels, w, 8), NULL, np.int32),
+        "dels": np.full((b, 1), NULL, np.int32),
+        "scratch": np.full(b, 10, np.int32),
+    }
+    g = np.random.default_rng(5)
+    for key, fill in YATA_FILLS:
+        stage[key] = g.integers(-1, cap, size=(b, cap + 1)).astype(np.int32)
+
+    def to(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+
+    def statics_of(st):
+        return {k: to(st[k]) for k in kernels.STATIC_KEYS}
+
+    for kernel, plain in (
+        (kernels.batch_step, kernels.batch_step_plain),
+        (kernels.batch_step_levels, kernels.batch_step_levels_plain),
+    ):
+        ref = run_yata(plain, stage, _torch(tables, cuda_device), statics_of, to)
+        got = run_yata(kernel, stage, _torch(tables, cuda_device), statics_of, to)
+        torch.cuda.synchronize()
+        for r, o in zip(ref, got):
+            assert torch.equal(r, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", ["1", "0"])
+@pytest.mark.parametrize("lane", ["levels", "seq"])
+def test_yata_engine_on_card_matches_cpu_twin(cuda_device, hang_guard, lane,
+                                              pipeline, monkeypatch):
+    """The device lanes on the card: after each flush the tables and the
+    six statics equal the CPU twin's untrimmed; exports equal a CPU Doc.
+    Client ids at and above 2**31 edit concurrently."""
+    monkeypatch.setenv("YTPU_KERNEL", lane)
+    monkeypatch.setenv("YTPU_FLUSH_PIPELINE", pipeline)
+    monkeypatch.setenv("YTPU_EXPORT_DEVICE", "1")
+    monkeypatch.setenv("YTPU_BLOCK_LEVELS", "2")
+    per_doc = [yata_session(seed, n_ops=40) for seed in range(4)]
+    eng = BatchEngine(4, device=cuda_device)
+    twin = BatchEngine(4, device="cpu")
+    for j in range(len(per_doc[0])):
+        for e in (eng, twin):
+            for i, ups in enumerate(per_doc):
+                e.queue_update(i, ups[j])
+        if j % 5 == 4:
+            eng.flush()
+            twin.flush()
+            torch.cuda.synchronize()
+            for a, b in zip(
+                (eng._right, eng._deleted, eng._starts),
+                (twin._right, twin._deleted, twin._starts),
+            ):
+                assert torch.equal(a.cpu(), b)
+            for key in kernels.STATIC_KEYS:
+                assert torch.equal(eng._statics[key].cpu(), twin._statics[key])
+    eng.flush()
+    for i, ups in enumerate(per_doc):
+        doc = Y.Doc(gc=False)
+        for u in ups:
+            Y.apply_update(doc, u)
+        assert eng.text(i) == doc.get_text("text").to_string()

@@ -229,16 +229,20 @@ def test_python_mirror_device_segment_mode_raises(monkeypatch):
 
 
 def test_unported_paths_raise(monkeypatch):
+    """The mesh is not ported and raises; the on-device YATA lane is
+    ported: a levels flush runs and gives the apply lane's text."""
     with pytest.raises(NotImplementedError, match="mesh"):
         TorchEngine(2, mesh=object(), device="cpu")
-    eng = TorchEngine(2, device="cpu")
-    for u in make_trace("storm", seed=2, n_ops=10):
-        eng.queue_update(0, u)
-    monkeypatch.setenv("YTPU_KERNEL", "levels")
-    with pytest.raises(NotImplementedError, match="K3-K7"):
+    ups = make_trace("storm", seed=2, n_ops=10)
+    texts = {}
+    for mode in ("levels", "apply"):
+        monkeypatch.setenv("YTPU_KERNEL", mode)
+        eng = TorchEngine(2, device="cpu")
+        for u in ups:
+            eng.queue_update(0, u)
         eng.flush()
-    monkeypatch.delenv("YTPU_KERNEL")
-    eng.flush()
+        texts[mode] = eng.text(0)
+    assert texts["levels"] == texts["apply"] != ""
 
 
 def test_default_device_is_cuda():

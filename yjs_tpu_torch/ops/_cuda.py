@@ -31,6 +31,7 @@ CSRC = os.path.join(
 )
 SOURCES = (
     "apply_lanes", "scatter_rows", "list_ranks", "state_vector", "diff_mask",
+    "statics", "yata",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,6 +48,9 @@ _ENTRIES = {
     "ytpu_list_ranks": ("list_ranks", [_vp] * 4 + [_int] * 3 + [_vp]),
     "ytpu_state_vector": ("state_vector", [_vp] * 3 + [_int] * 3 + [_vp]),
     "ytpu_diff_mask": ("diff_mask", [_vp] * 6 + [_int] * 3 + [_vp]),
+    "ytpu_scatter_statics": ("statics", [_vp] * 7 + [_int] * 3 + [_vp]),
+    "ytpu_batch_step": ("yata", [_vp] * 13 + [_int] * 7 + [_vp]),
+    "ytpu_batch_step_levels": ("yata", [_vp] * 15 + [_int] * 9 + [_vp]),
 }
 
 _fns: dict | None = None
@@ -165,3 +169,32 @@ def diff_mask(row_slot, row_clock, row_end, sv, needed, offset, b, n,
               n_slots) -> None:
     _call("ytpu_diff_mask", row_slot.device, _p(row_slot), _p(row_clock),
           _p(row_end), _p(sv), _p(needed), _p(offset), b, n, n_slots)
+
+
+def scatter_statics(packed, cols, k, b, n1) -> None:
+    _call("ytpu_scatter_statics", packed.device, _p(packed),
+          *(_p(c) for c in cols), k, b, n1)
+
+
+def _yata_tables(cols, dyn, visit):
+    return [_p(t) for t in (*cols, *dyn, visit)]
+
+
+def batch_step(cols, dyn, visit, splits, sched, dels, epoch_max) -> None:
+    """``cols``: the six static columns in ``kernels.STATIC_KEYS`` order."""
+    right, _deleted, starts = dyn
+    b, n1 = right.shape
+    _call("ytpu_batch_step", right.device, *_yata_tables(cols, dyn, visit),
+          _p(splits), _p(sched), _p(dels), b, n1, starts.shape[1],
+          splits.shape[1], sched.shape[1], dels.shape[1], epoch_max)
+
+
+def batch_step_levels(cols, dyn, visit, fast, splits, lv, dels,
+                      scratch_base, epoch_max) -> None:
+    right, _deleted, starts = dyn
+    b, n1 = right.shape
+    _call("ytpu_batch_step_levels", right.device,
+          *_yata_tables(cols, dyn, visit), _p(fast), _p(splits), _p(lv),
+          _p(dels), _p(scratch_base), b, n1, starts.shape[1],
+          splits.shape[1], lv.shape[1], lv.shape[2], dels.shape[1],
+          fast.shape[1], epoch_max)

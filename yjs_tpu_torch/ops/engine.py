@@ -1,23 +1,33 @@
 """BatchEngine: batched apply_update over many docs on a CUDA device.
 
-The PyTorch port of ``yjs_tpu/ops/engine.py``'s apply-lane flush.
-Pending binary updates from many docs are planned on the host (the C++
-plan core behind :class:`NativeMirror`, or the Python
-:class:`DocMirror`), which resolves every final YATA link; one packed
-lanes buffer per chunk is copied to the device and scattered into the
-persistent device state (right links, segment heads, deleted bits) by
-the hand-written kernels of :mod:`.kernels`.  Root text/list/map types
-and nested shared types are all served; only docs embedding
-subdocuments fall back to the CPU reference core — the Provider gating
-seam.
+The PyTorch port of ``yjs_tpu/ops/engine.py``.  Pending binary updates
+from many docs are planned on the host (the C++ plan core behind
+:class:`NativeMirror`, or the Python :class:`DocMirror`), and the
+persistent device state (right links, segment heads, deleted bits) is
+written by the hand-written kernels of :mod:`.kernels`.  Three flush
+lanes, chosen by ``YTPU_KERNEL`` as in the JAX engine:
+
+- ``apply`` (unset, the default): the planner resolves every final YATA
+  link; one packed lanes buffer per chunk is copied to the device and
+  scattered into the tables;
+- ``seq``: YATA runs on the device, one item at a time per doc
+  (``kernels.batch_step``), over the planner's causal schedule;
+- ``levels`` (any other value): YATA runs on the device level by level
+  (``kernels.batch_step_levels``), true conflicts through the same
+  single-item integrate.
+
+The device lanes read six resident static columns per row (client key,
+origin and right-origin ids, origin row), uploaded as a per-flush delta
+(``kernels.scatter_statics``).  Root text/list/map types and nested
+shared types are all served; only docs embedding subdocuments fall back
+to the CPU reference core — the Provider gating seam.
 
 The resident tables are torch tensors on ``self.device``: a CUDA device
 unless the caller asks for ``device="cpu"`` (the tests do), where the
 kernels' plain PyTorch versions serve.  The batched sync paths
 (``state_vectors_batched`` and the device branch of
 ``sync_step2_batch``) run the state-vector and diff-mask kernels.  The
-on-device YATA lanes (``YTPU_KERNEL=levels|seq``) and the mesh are later
-slices of the port and raise ``NotImplementedError``.
+mesh is a later slice of the port and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -119,6 +129,29 @@ def _bucket_lanes(n: int, minimum: int = 64) -> int:
         return _bucket(n, minimum)
     e = max(0, (n - 1).bit_length() - 1 - bits)
     return ((n + (1 << e) - 1) >> e) << e
+
+
+# target size of one level-axis schedule tile (entries per doc-batch block);
+# big enough that kernel launch overhead amortizes, small enough that the
+# padded [B, block, W, 8] tile stays modest at any log length
+_BLOCK_BUDGET = 1 << 22
+
+
+def _block_levels(n_docs: int, w_lv: int) -> int:
+    return _bucket(max(1, _BLOCK_BUDGET // max(1, n_docs * w_lv)), 1)
+
+
+# resident immutable device columns, in packed-row order for the one-
+# transfer statics scatter (client_key rides as its u32 bit pattern in an
+# int32 column: torch has no uint32 index_put_ on the CPU)
+_STATIC_COLS = (
+    ("client_key", 0, "uint32"),
+    ("origin_slot", NULL, "int32"),
+    ("origin_clock", 0, "int32"),
+    ("right_slot", NULL, "int32"),
+    ("right_clock", 0, "int32"),
+    ("origin_row", NULL, "int32"),
+)
 
 
 def _not_ported(what: str, where: str) -> NotImplementedError:
@@ -416,6 +449,11 @@ class BatchEngine:
         self._right = None
         self._deleted = None
         self._starts = None
+        # resident immutable columns, updated by per-flush row scatters —
+        # steady-state flush transfer scales with the DELTA, not with B*cap
+        self._statics: dict | None = None
+        # rows per doc already uploaded and still valid on device
+        self._uploaded_rows = [0] * n_docs
         # pipelined flush state: double-buffered staging pair (pinned on
         # a CUDA engine) + in-flight dispatch markers persist ACROSS
         # flushes so steady state neither reallocates nor stalls;
@@ -601,6 +639,7 @@ class BatchEngine:
         self.mirrors[doc] = DocMirror(self.root_name)  # dead mirror
         plan_cache.note_invalidation("demote")
         self._update_log[doc] = []
+        self._uploaded_rows[doc] = 0
         if self._update_listeners:
             # emit the demoting flush's novelty, then live-forward the
             # fallback doc's own update events
@@ -802,6 +841,88 @@ class BatchEngine:
         self._flush_realloc_bytes += int(
             self._right.nbytes + self._deleted.nbytes + self._starts.nbytes
         )
+        # grow the resident statics on the device (padded at the end, as
+        # jnp.pad does: the old scratch column keeps its contents).
+        # Allocation is lazy: the apply lane never reads them, so an
+        # apply-only engine spends no device memory or transfer on statics
+        # (_ensure_statics allocates on the first levels/seq flush)
+        if self._statics is not None:
+            for key, fill, _dtype in _STATIC_COLS:
+                old = self._statics[key]
+                self._statics[key] = grow(
+                    old, old.shape[1], self._cap + 1, fill, torch.int32
+                )
+            self._flush_realloc_bytes += int(
+                sum(v.nbytes for v in self._statics.values())
+            )
+
+    def _ensure_statics(self) -> None:
+        if self._statics is not None:
+            return
+        b = self.n_docs
+        self._statics = {
+            key: torch.full((b, self._cap + 1), fill, dtype=torch.int32,
+                            device=self.device)
+            for key, fill, _dtype in _STATIC_COLS
+        }
+        self._flush_realloc_bytes += int(
+            sum(v.nbytes for v in self._statics.values())
+        )
+        # everything must (re-)upload into the fresh columns
+        self._uploaded_rows = [0] * b
+
+    def _upload_statics(self, plans) -> None:
+        """Scatter this flush's statics delta (its own dispatch, ahead of
+        the levels/seq step that reads it)."""
+        self._ensure_statics()
+        packed = self._statics_delta(plans)
+        if packed is not None:
+            self._dispatch("statics", self._put_r(packed))
+
+    def _statics_delta(self, plans):
+        """This flush's NEW/changed rows as one packed [8, K] i32 block
+        (doc, row, six value columns; client_key as its bit pattern).
+
+        A doc's immutable columns only change by appending rows — except
+        when a pre-split cuts an existing run (origin_row coverage moves to
+        the new fragment) or compaction renumbered the table, which both
+        force a full re-upload of that doc."""
+        doc_idx: list[np.ndarray] = []
+        row_idx: list[np.ndarray] = []
+        vals: dict[str, list[np.ndarray]] = {k: [] for k, _f, _d in _STATIC_COLS}
+        for i, p in plans.items():
+            m = self.mirrors[i]
+            n = m.n_rows
+            start = 0 if len(p.splits) else self._uploaded_rows[i]
+            if n <= start:
+                continue
+            cols = m.static_columns(start)
+            doc_idx.append(np.full(n - start, i, np.int32))
+            row_idx.append(np.arange(start, n, dtype=np.int32))
+            for k in vals:
+                vals[k].append(cols[k])
+            self._uploaded_rows[i] = n
+        if not doc_idx:
+            return None
+        d = np.concatenate(doc_idx)
+        r = np.concatenate(row_idx)
+        # pad to a lane bucket (bounded distinct shapes, as the JAX engine
+        # bounds its compiles); padding lanes write the fills to the
+        # scratch row (index cap) of doc 0, whose contents are never read
+        total = len(d)
+        padded = _bucket_lanes(total, 64)
+        packed = np.empty((2 + len(_STATIC_COLS), padded), np.int32)
+        packed[0, :total] = d
+        packed[0, total:] = 0
+        packed[1, :total] = r
+        packed[1, total:] = self._cap
+        for j, (k, fill, dtype) in enumerate(_STATIC_COLS):
+            v = np.concatenate(vals[k])
+            if dtype == "uint32":
+                v = v.astype(np.uint32).view(np.int32)
+            packed[2 + j, :total] = v
+            packed[2 + j, total:] = fill
+        return packed
 
     # -- compaction ---------------------------------------------------------
 
@@ -849,6 +970,7 @@ class BatchEngine:
             new_deleted[j, :n_new] = d
             new_starts[j, : len(h)] = h
             self._rows_at_compact[i] = n_new
+            self._uploaded_rows[i] = 0  # renumbered: statics re-upload
             stats.append(
                 {"doc": i, "rows_before": old_n, "rows_after": n_new}
             )
@@ -907,7 +1029,8 @@ class BatchEngine:
         columns are rebuilt compacted and the device scatter is
         DEFERRED — it batches into the next flush dispatch (or the next
         device read-back) alongside any other pending hydrations, so
-        the promotion itself is host-only work."""
+        the promotion itself is host-only work.  Statics lazily
+        re-upload from row 0 on the next flush that needs them."""
         if doc in self.fallback:
             raise ValueError(f"doc {doc} is CPU-served; reset it first")
         if self.mirrors[doc].n_rows or self._update_log[doc]:
@@ -918,6 +1041,7 @@ class BatchEngine:
         self._ensure_capacity(max(1, len(r)), max(1, len(h)))
         self._pending_hydration[doc] = (r, d, h)
         self._rows_at_compact[doc] = len(r)
+        self._uploaded_rows[doc] = 0
         if len(r):
             self._active_docs.add(doc)
         return {"rows": len(r), "segs": len(h)}
@@ -967,13 +1091,15 @@ class BatchEngine:
         self.fallback.pop(doc, None)
         self._pending_hydration.pop(doc, None)
         self._update_log[doc] = []
+        self._uploaded_rows[doc] = 0
         self._rows_at_compact[doc] = 0
         self._active_docs.discard(doc)
         self._event_listeners.pop(doc, None)
         self.health.reset(doc)
         if self._right is not None:
             # blank the slot's device rows in place (same fills as the
-            # initial allocation)
+            # initial allocation); statics re-upload from row 0 is
+            # already forced by _uploaded_rows above
             self._right[doc].fill_(NULL)
             self._deleted[doc].fill_(False)
             self._starts[doc].fill_(NULL)
@@ -1021,6 +1147,10 @@ class BatchEngine:
             "deleted": int(self._deleted.nbytes),
             "starts": int(self._starts.nbytes),
         }
+        if self._statics is not None:
+            tables["statics"] = int(
+                sum(v.nbytes for v in self._statics.values())
+            )
         self.obs.device_memory(
             tables,
             self.device.type,
@@ -1035,15 +1165,6 @@ class BatchEngine:
             self.health.tick()
 
     def _flush(self) -> None:
-        # kernel selection: only "apply" (the default) is ported; it ships
-        # the planner's final link values in one conflict-free scatter
-        mode = os.environ.get("YTPU_KERNEL") or "apply"
-        if mode != "apply":
-            raise _not_ported(
-                f"YTPU_KERNEL={mode} (on-device YATA, kernels K3-K7)",
-                "ROADMAP queue 1, item 7",
-            )
-        want_levels = False
         t_start = time.perf_counter()
         # per-flush pipeline counters reset; the staging pair + in-flight
         # markers persist across flushes.  Sync (A/B) mode is re-read per
@@ -1064,13 +1185,22 @@ class BatchEngine:
         t_plan_cached = t_plan_cold = 0.0
         emitting = bool(self._update_listeners)
         observing = self._event_listeners
-        # native planner: ONE ymx_prepare_many call plans every staged doc
-        # (the per-doc ctypes loop dominated distinct-doc flushes); the
-        # Python mirror keeps the doc loop.  Gate on planner availability,
-        # not any particular doc's mirror: a demoted doc 0 must not
-        # silently disable the fast path fleet-wide
-        use_batch = native_plan_available() and any(
-            isinstance(m, NativeMirror) for m in self.mirrors
+        # kernel selection: "apply" (default) ships the planner's final
+        # link values in one conflict-free scatter; "seq" and any other
+        # value ("levels") run YATA on the device
+        mode = os.environ.get("YTPU_KERNEL")
+        if not mode:
+            mode = "apply"
+        want_levels = mode != "apply"
+        # bulk path + native planner: ONE ymx_prepare_many call plans every
+        # staged doc (the per-doc ctypes loop dominated distinct-doc
+        # flushes); levels/seq and the Python mirror keep the doc loop.
+        # Gate on planner availability, not any particular doc's mirror: a
+        # demoted doc 0 must not silently disable the fast path fleet-wide
+        use_batch = (
+            not want_levels
+            and native_plan_available()
+            and any(isinstance(m, NativeMirror) for m in self.mirrors)
         )
         work: list = []  # batched path: (doc, mirror)
         with self._phase_ctx("plan"):
@@ -1180,10 +1310,140 @@ class BatchEngine:
                 observed=set(observing), native=True,
             )
             return
-        self._flush_bulk(
-            sorted(plans.items()), pre_svs, emitting, metrics, t_start,
-            native=False,
-        )
+        if mode == "apply":
+            self._flush_bulk(
+                sorted(plans.items()), pre_svs, emitting, metrics, t_start,
+                native=False,
+            )
+            return
+        self._flush_yata(mode, plans, pre_svs, emitting, metrics, t_start,
+                         t_plan)
+
+    def _flush_yata(self, mode, plans, pre_svs, emitting, metrics, t_start,
+                    t_plan) -> None:
+        """The on-device YATA lanes: pack the plans' splits, causal
+        schedules (``seq``) or level schedules (``levels``) and deletes,
+        upload the statics delta, and run the step kernel — blockwise over
+        the level axis for ``levels``."""
+        with self._phase_ctx("pack"), self._pl.pack():
+            n_splits = _bucket(
+                max((len(p.splits) for p in plans.values()), default=0), 1
+            )
+            n_sched = _bucket(
+                max((len(p.sched) for p in plans.values()), default=0), 1
+            )
+            n_del = _bucket(
+                max((len(p.delete_rows) for p in plans.values()), default=0), 1
+            )
+            n_lv = _bucket(
+                max((p.n_levels for p in plans.values()), default=0), 1
+            )
+            w_lv = _bucket(
+                max((p.max_width for p in plans.values()), default=0), 1
+            )
+            max_rows = max((p.n_rows for p in plans.values()), default=0)
+            max_segs = max(
+                (self.mirrors[i].n_segs for i in plans), default=0
+            )
+            # reserve >= 2*w_lv spare row slots per doc: the level kernel's
+            # merged scatter uses two unique scratch lanes per schedule slot
+            self._ensure_capacity(max_rows + 2 * w_lv, max_segs)
+            b = self.n_docs
+
+            splits = np.full((b, n_splits, 2), NULL, np.int32)
+            sched = np.full((b, n_sched, 4), NULL, np.int32)
+            lv_sched = np.full((b, n_lv, w_lv, 8), NULL, np.int32)
+            dels = np.full((b, n_del), NULL, np.int32)
+            for i, p in plans.items():
+                if len(p.splits):
+                    splits[i, : len(p.splits)] = p.splits
+                if len(p.sched):
+                    sched[i, : len(p.sched)] = p.sched
+                if hasattr(p, "pack_into"):
+                    p.pack_into(lv_sched[i])
+                else:
+                    for lv, entries in enumerate(p.packed_levels()):
+                        if entries:
+                            lv_sched[i, lv, : len(entries)] = entries
+                if len(p.delete_rows):
+                    dels[i, : len(p.delete_rows)] = p.delete_rows
+
+            # EVERY doc needs its true row count here — masked scatter lanes
+            # land at scratch_base+lane even for docs with no work this
+            # flush, and must hit the padding region, not live rows
+            scratch_base = np.asarray(
+                [m.n_rows for m in self.mirrors], np.int32
+            )
+
+            self._upload_statics(plans)
+            statics = self._statics
+        t_pack = time.perf_counter()
+        with self._phase_ctx("dispatch"):
+            if mode == "seq":
+                self._dispatch(
+                    "seq", statics, self._put_r(splits), self._put_r(sched),
+                    self._put_r(dels),
+                )
+            else:
+                # blockwise over the level axis: levels are causally
+                # ordered and the device state persists between
+                # dispatches, so slicing by level prefix is exact — splits
+                # run only in the first block, deletes only in the last.
+                # Bounds the padded [B, L, W, 8] transfer and device buffer
+                # however long the log is.
+                block = max(
+                    1,
+                    int(os.environ.get("YTPU_BLOCK_LEVELS", "0"))
+                    or _block_levels(b, w_lv),
+                )
+                empty_splits = empty_dels = None
+                if n_lv > block:  # multi-block: cache the no-op inputs
+                    empty_splits = self._put_r(
+                        np.full((b, 1, 2), NULL, np.int32)
+                    )
+                    empty_dels = self._put_r(np.full((b, 1), NULL, np.int32))
+                scratch_d = self._put_r(scratch_base)
+                for c0 in range(0, n_lv, block):
+                    c1 = min(n_lv, c0 + block)
+                    self._dispatch(
+                        "levels",
+                        statics,
+                        self._put_r(splits) if c0 == 0 else empty_splits,
+                        self._put_r(lv_sched[:, c0:c1]),
+                        self._put_r(dels) if c1 == n_lv else empty_dels,
+                        scratch_d,
+                    )
+        t_dispatch = time.perf_counter()
+
+        with self._phase_ctx("emit"):
+            self._emit_phase(plans, pre_svs, emitting)
+        t_emit = time.perf_counter()
+
+        n_sched_entries = sum(len(p.sched8) for p in plans.values())
+        lv_slots = b * n_lv * w_lv
+        pending_docs = [i for i in plans if self.mirrors[i].has_pending()]
+        metrics.update({
+            "n_docs_flushed": sum(
+                1
+                for p in plans.values()
+                if len(p.sched8) or len(p.splits) or len(p.delete_rows)
+            ),
+            "n_rows_max": max_rows,
+            "n_sched_entries": n_sched_entries,
+            "n_levels": n_lv,
+            "level_width": w_lv,
+            # fraction of the padded [B, L, W] schedule that is real work
+            "schedule_occupancy": n_sched_entries / lv_slots if lv_slots else 0.0,
+            "n_pending_docs": len(pending_docs),
+            "pending_depth": sum(
+                self.mirrors[i].pending_depth() for i in pending_docs
+            ),
+            "t_pack_s": t_pack - t_plan,
+            "t_dispatch_s": t_dispatch - t_pack,
+            "t_emit_s": t_emit - t_dispatch,
+            "t_total_s": t_emit - t_start,
+        })
+        self._finish_flush(metrics)
 
     def _emit_phase(self, plans, pre_svs, emitting, observed=None) -> None:
         """Post-dispatch host work shared by both dispatch paths: update-log
@@ -1223,19 +1483,24 @@ class BatchEngine:
     def _dispatch(self, kind, *args, slot=None):
         """THE one flush dispatch path: every device mutation of the
         resident tables — bulk lanes (per-doc python plans, native
-        batched plans, and cached-plan replay alike) and whole-row
-        rebuild scatters (compaction, deferred hydration) — funnels
+        batched plans, and cached-plan replay alike), the levels/seq YATA
+        step, the statics delta scatter, and whole-row rebuild scatters
+        (compaction, deferred hydration) — funnels
         through here, so the pipeline bookkeeping (in-flight markers,
         staging-buffer fences, sync A/B mode) and any future kernel
         change land exactly once.
 
         kinds:
           "lanes"   (lanes, key)                    bulk-apply scatter
+          "seq"     (statics, splits, sched, dels)  sequential YATA step
+          "levels"  (statics, splits, lv_block, dels, scratch)  one
+                    level-axis block
+          "statics" (packed,)                       resident-column delta
           "rows"    (idx, right, deleted, starts)   whole-row rebuild
 
         ``slot`` is the staging buffer a "lanes" dispatch consumes: its
-        row is copied to the device here and fenced for reuse.  "rows"
-        args are already device-placed by the caller (_put_r)."""
+        row is copied to the device here and fenced for reuse.  The other
+        kinds' args are already device-placed by the caller (_put_r)."""
         dyn = (self._right, self._deleted, self._starts)
         if kind == "lanes":
             lanes, key = args
@@ -1245,6 +1510,14 @@ class BatchEngine:
                 else self._put_r(lanes[0])
             )
             kernels.apply_plan2(dyn, lanes_dev, k_dn, k_sp, k_h, k_d)
+        elif kind == "seq":
+            statics, splits, sched, dels = args
+            kernels.batch_step(statics, dyn, splits, sched, dels)
+        elif kind == "levels":
+            kernels.batch_step_levels(args[0], dyn, *args[1:])
+        elif kind == "statics":
+            (packed,) = args
+            kernels.scatter_statics(self._statics, packed)
         elif kind == "rows":
             idx, new_right, new_deleted, new_starts = args
             kernels.scatter_rows(
@@ -1322,6 +1595,10 @@ class BatchEngine:
                 stats_tot += stats
                 max_rows_all = max(max_rows_all, max_rows)
                 lanes_padded_tot += n_shards * sum(key)
+                # the apply lane never reads the device statics; mark touched
+                # docs for full (re-)upload if a levels/seq flush ever runs
+                for t in chunk_ok:
+                    self._uploaded_rows[t[0]] = 0
                 work_ok.extend(chunk_ok)
             t2 = time.perf_counter()
             t_pack_acc += t2 - t1

@@ -1,6 +1,7 @@
-"""Device kernels of the apply-lane flush, as torch wrappers.
+"""Device kernels of the flush, as torch wrappers.
 
-Three device programs carry the default flush of :class:`BatchEngine`:
+Three device programs carry the default (apply-lane) flush of
+:class:`BatchEngine`:
 
 - :func:`apply_lanes` (through :func:`apply_plan2`) scatters one packed
   lanes buffer of host-resolved final links, segment heads and delete
@@ -11,6 +12,16 @@ Three device programs carry the default flush of :class:`BatchEngine`:
   pointer doubling — exports that read the device tables back
   (``YTPU_EXPORT_DEVICE=1``).
 
+Three more run YATA itself on the device (``YTPU_KERNEL=levels|seq``):
+
+- :func:`scatter_statics` writes one packed block of new rows into the
+  six resident static columns the conflict scan reads;
+- :func:`batch_step` (``seq``) integrates each doc's causal schedule one
+  item at a time;
+- :func:`batch_step_levels` (``levels``) splices each dependency level
+  in one pass and sends true conflicts through the same single-item
+  integrate.
+
 Two more serve the batched sync paths of the engine and the provider:
 
 - :func:`state_vector_kernel` reduces each doc's rows to its dense state
@@ -20,13 +31,14 @@ Two more serve the batched sync paths of the engine and the provider:
   ``BatchEngine.sync_step2_batch`` (reconnect storms, checkpoints).
 
 Each wrapper keeps the JAX package's signature and semantics
-(``yjs_tpu/ops/kernels.py``) and has a plain PyTorch version beside it
-(``*_plain``).  The wrapper dispatches on the device of the tensors it
-is given: CPU tensors take the plain version, CUDA tensors launch the
-hand-written CUDA kernel from ``yjs_tpu_torch/csrc`` (built and bound by
-:mod:`._cuda`) or raise — there is no fallback from one to the other.
-The kernels write the resident tables in place (the JAX versions donate
-them), so a wrapper returns the same tensor objects it was given.
+(``yjs_tpu/ops/kernels.py``, ``yjs_tpu/ops/engine.py``) and has a plain
+PyTorch version beside it (``*_plain``).  The wrapper dispatches on the
+device of the tensors it is given: CPU tensors take the plain version,
+CUDA tensors launch the hand-written CUDA kernel from
+``yjs_tpu_torch/csrc`` (built and bound by :mod:`._cuda`) or raise —
+there is no fallback from one to the other.  The kernels write the
+resident tables in place (the JAX versions donate them), so a wrapper
+returns the same tensor objects it was given.
 
 ``launches`` counts, per wrapper, the CUDA kernel launches it made; the
 plain version never counts.
@@ -45,6 +57,7 @@ import numpy as np
 import torch
 
 from ..obs.prof import profiled
+from .columns import GATHER_SUCC
 
 NULL = -1
 
@@ -52,6 +65,7 @@ NULL = -1
 launches = {
     "apply_lanes": 0, "scatter_rows": 0, "list_ranks": 0,
     "state_vector": 0, "diff_mask": 0,
+    "scatter_statics": 0, "batch_step": 0, "batch_step_levels": 0,
 }
 
 
@@ -392,6 +406,428 @@ def diff_mask_kernel(row_slot, row_clock, row_end, sv):
                         b, n, sv.shape[1])
         launches["diff_mask"] += 1
     return needed, offset
+
+
+# ---------------------------------------------------------------------------
+# K3-K6: on-device YATA (YTPU_KERNEL=levels|seq)
+# ---------------------------------------------------------------------------
+
+# the six resident static columns, in the row order of the packed block
+# scatter_statics takes (rows 2..7; rows 0 and 1 are doc and row).
+# client_key holds the client id's u32 bit pattern in an int32 tensor
+# (torch has no uint32 index_put_ on the CPU); YATA compares it unsigned.
+STATIC_KEYS = (
+    "client_key", "origin_slot", "origin_clock", "right_slot",
+    "right_clock", "origin_row",
+)
+INT32_MAX = 2**31 - 1
+# ceiling of the per-doc visit-epoch counter of the conflict scan: before
+# an item whose scan could carry the counter past it, the doc's visit row
+# is refilled with -1 and the counter restarts at 0 (see
+# _integrate_plain), so it never passes 2**31 - 1 however long the
+# launch.  Tests lower it to exercise the restart.
+EPOCH_MAX = INT32_MAX
+
+
+def _gather_idx(i: torch.Tensor, n: int) -> torch.Tensor:
+    """JAX's gather index rule: a negative index counts from the end,
+    then the index is clamped into ``[0, n)``."""
+    i = torch.where(i < 0, i + n, i)
+    return i.clamp(0, n - 1).long()
+
+
+def _take(table: torch.Tensor, docs: torch.Tensor,
+          i: torch.Tensor) -> torch.Tensor:
+    """``table[docs[j], i[j]]`` for each j, with JAX's gather rule."""
+    return table[docs, _gather_idx(i, table.shape[1])]
+
+
+def _put(table: torch.Tensor, docs: torch.Tensor, i: torch.Tensor,
+         v: torch.Tensor, cond: torch.Tensor) -> None:
+    """``table[docs[j], i[j]] = v[j]`` where ``cond[j]``, in place, with
+    JAX's scatter rule (negative wraps, what is still out of range is
+    dropped); ``docs`` holds distinct docs.  A doc whose write is masked
+    or dropped rewrites one of its own cells with its current value (one
+    write per doc, so no two writes collide): the JAX ``_upd``'s rewrite
+    of the scratch row."""
+    n = table.shape[1]
+    i = i.long()
+    i = torch.where(i < 0, i + n, i)
+    keep = cond & (i >= 0) & (i < n)
+    i = torch.where(keep, i, 0)
+    old = table[docs, i]
+    table[docs, i] = torch.where(keep, v.to(table.dtype), old)
+
+
+def _ids_eq(s1, k1, s2, k2):
+    """compare_ids on (slot, clock) columns; NULL slot == null id."""
+    return (s1 == s2) & ((s1 == NULL) | (k1 == k2))
+
+
+def _unsigned_order(key: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns of u32 client ids, biased so that signed
+    comparison gives the unsigned order (YATA case 1 compares client ids
+    unsigned; half of all random 32-bit ids are >= 2**31)."""
+    return torch.bitwise_xor(key, INT32_MIN)
+
+
+def _integrate_plain(statics, rl, starts, visit, counter, docs, k, left0,
+                     right0, seg, stats=None) -> None:
+    """K4, the single-item YATA integrate, for one item of each doc in
+    ``docs`` at once (``k`` NULL: the doc does nothing): the conflict scan
+    (cases 1-3, reference Item.js:447-470) from ``left0``'s successor up
+    to ``right0``, then the splice (Item.js:473-489).  Writes ``rl``,
+    ``starts``, ``visit`` and the per-doc ``counter`` in place.
+
+    Visit marks carry the scan's set semantics without clearing: a row is
+    in itemsBeforeOrigin iff ``visit[row] >= scan_base`` (the counter's
+    value when the item starts) and in conflictingItems iff ``visit[row]
+    >= clear``.  The counter runs on across the items of one launch, so
+    marks of earlier items fall below ``scan_base`` like unmarked rows
+    (-1) do: the same answer as the JAX kernel's fresh ``visit`` array per
+    item (``yjs_tpu/ops/kernels.py:124``) without allocating one.  A scan
+    takes at most N+1 steps (a list without a cycle has no more rows);
+    the bound also ends a scan over a corrupt, cyclic list, which the
+    JAX kernel would loop on forever."""
+    n1 = rl.shape[1]
+    dummy = n1 - 1
+    s_dummy = starts.shape[1] - 1
+    oslot, oclock = statics["origin_slot"], statics["origin_clock"]
+    rslot, rclock = statics["right_slot"], statics["right_clock"]
+    origin_row, key = statics["origin_row"], statics["client_key"]
+    valid = k >= 0
+    # epoch restart: one scan adds at most n1 to the counter
+    cnt = counter[docs]
+    roll = valid & (cnt.long() > EPOCH_MAX - n1)
+    if bool(roll.any()):
+        visit[docs[roll]] = NULL
+        cnt = torch.where(roll, 0, cnt)
+
+    safe_seg = torch.where(seg >= 0, seg, s_dummy)
+    st = _take(starts, docs, safe_seg)
+    safe_k = torch.where(valid, k, dummy)
+    rl_l = _take(rl, docs, torch.where(left0 >= 0, left0, dummy))
+    # fast path (the negation of reference Item.js:432-434)
+    skip = torch.where(left0 == NULL, (right0 != NULL) & (st == right0),
+                       rl_l == right0)
+    o = torch.where(valid & ~skip, torch.where(left0 == NULL, st, rl_l), NULL)
+    scan_base = cnt
+    clear = cnt
+    left = left0
+    k_os, k_oc = _take(oslot, docs, safe_k), _take(oclock, docs, safe_k)
+    k_rs, k_rc = _take(rslot, docs, safe_k), _take(rclock, docs, safe_k)
+    k_key = _unsigned_order(_take(key, docs, safe_k))
+    done = torch.zeros_like(valid)
+    steps = torch.zeros_like(k)
+    while True:
+        run = ~done & (o != NULL) & (o != right0) & (steps < n1)
+        if not bool(run.any()):
+            break
+        _put(visit, docs, o, cnt, run)
+        cnt = torch.where(run, cnt + 1, cnt)
+        o_os = _take(oslot, docs, o)
+        # case 1: same origin -> the lower client id goes left
+        same = _ids_eq(k_os, k_oc, o_os, _take(oclock, docs, o))
+        c1_left = same & (_unsigned_order(_take(key, docs, o)) < k_key)
+        c1_break = same & ~c1_left & _ids_eq(
+            k_rs, k_rc, _take(rslot, docs, o), _take(rclock, docs, o)
+        )
+        # case 2: o's origin lies between this.origin and this
+        has_origin = o_os != NULL
+        safe_orow = torch.where(has_origin, _take(origin_row, docs, o), dummy)
+        v_orow = _take(visit, docs, safe_orow)
+        in_before = has_origin & (v_orow >= scan_base)
+        c2_left = ~same & in_before & ~(v_orow >= clear)
+        # case 3: an unrelated item ends the scan
+        c3_break = ~same & ~in_before
+        take_left = run & (c1_left | c2_left)
+        left = torch.where(take_left, o, left)
+        clear = torch.where(take_left, cnt, clear)
+        stop = run & (c1_break | c3_break)
+        done = done | stop
+        o = torch.where(run & ~stop, _take(rl, docs, o), o)
+        steps = steps + run.to(steps.dtype)
+    if stats is not None:
+        stats["scan_steps"][docs] += steps.long()
+        # dependent loads: the gap read, the splice read, three per step
+        stats["chain"][docs] += 2 * valid.long() + 3 * steps.long()
+
+    # splice into the list (reference Item.js:473-489)
+    right2 = torch.where(
+        left == NULL, st, _take(rl, docs, torch.where(left >= 0, left, dummy))
+    )
+    _put(rl, docs, left, k, valid & (left != NULL))
+    _put(starts, docs, safe_seg, k, valid & (left == NULL))
+    _put(rl, docs, k, right2, valid)
+    counter[docs] = cnt
+
+
+def _split_prepass_plain(rl, deleted, splits, stats=None):
+    """The split pre-pass of K5/K6 (the device half of splitItem,
+    reference Item.js:84-120): per doc, in order, the fragment ``new`` of
+    a host-split run takes over ``orig``'s right link and deleted bit and
+    ``orig`` links to it."""
+    dummy = rl.shape[1] - 1
+    docs = torch.arange(rl.shape[0], device=rl.device)
+    for j in range(splits.shape[1]):
+        orig, new = splits[:, j, 0], splits[:, j, 1]
+        valid = orig >= 0
+        safe_orig = torch.where(valid, orig, dummy)
+        old_right = _take(rl, docs, safe_orig)
+        old_del = _take(deleted, docs, safe_orig)
+        _put(rl, docs, new, old_right, valid)
+        _put(rl, docs, orig, new, valid)
+        _put(deleted, docs, new, old_del, valid)
+        if stats is not None:
+            stats["chain"] += valid.long()
+
+
+def _deletes_plain(deleted, delete_rows):
+    """Mark ``delete_rows`` (NULL-padded) deleted (reference DeleteSet.js
+    readAndApplyDeleteSet tail)."""
+    n1 = deleted.shape[1]
+    r = delete_rows.long()
+    keep = (r >= 0) & (r < n1)
+    docs = torch.arange(deleted.shape[0], device=deleted.device)[:, None]
+    docs = docs.expand_as(r)
+    deleted[docs[keep], r[keep]] = True
+
+
+def _yata_inputs(statics, dyn, *schedules):
+    """The tensors a YATA kernel reads and writes, for the device check."""
+    return [statics[k] for k in STATIC_KEYS] + list(dyn) + list(schedules)
+
+
+def _check_yata(statics, dyn, *schedules) -> None:
+    right, deleted, starts = dyn
+    _check(right, "right_link", (torch.int32,), 2)
+    _check(deleted, "deleted", (torch.bool,), 2)
+    _check(starts, "starts", (torch.int32,), 2)
+    for key in STATIC_KEYS:
+        _check(statics[key], key, (torch.int32,), 2)
+        if statics[key].shape != right.shape:
+            raise ValueError(f"static column {key} does not match right_link")
+    if deleted.shape != right.shape or starts.shape[0] != right.shape[0]:
+        raise ValueError("table shapes disagree")
+    for t in schedules:
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError("schedules must be contiguous int32")
+        if t.shape[0] != right.shape[0]:
+            raise ValueError("schedules must lead with the doc axis")
+
+
+def scatter_statics_plain(statics, packed):
+    """Plain PyTorch version of :func:`scatter_statics` (in place)."""
+    b, n1 = statics[STATIC_KEYS[0]].shape
+    d, r = packed[0].long(), packed[1].long()
+    d = torch.where(d < 0, d + b, d)
+    r = torch.where(r < 0, r + n1, r)
+    keep = (d >= 0) & (d < b) & (r >= 0) & (r < n1)
+    d, r = d[keep], r[keep]
+    for j, key in enumerate(STATIC_KEYS):
+        statics[key].index_put_((d, r), packed[2 + j][keep])
+    return statics
+
+
+@profiled("scatter_statics")
+def scatter_statics(statics, packed):
+    """Write one packed ``[8, K]`` int32 block into the six resident
+    static columns, in place: row 0 is the doc, row 1 the row, rows 2-7
+    the values in :data:`STATIC_KEYS` order (``client_key`` as its u32
+    bit pattern).  Targets outside the columns are dropped; the engine's
+    padding lanes all write the fill values to doc 0's scratch row.
+    Returns ``statics``."""
+    cols = [statics[k] for k in STATIC_KEYS]
+    if not _on_cuda(*cols, packed):
+        return scatter_statics_plain(statics, packed)
+    from . import _cuda
+
+    for key, col in zip(STATIC_KEYS, cols):
+        _check(col, key, (torch.int32,), 2)
+        if col.shape != cols[0].shape:
+            raise ValueError("static columns disagree in shape")
+    _check(packed, "packed", (torch.int32,), 2)
+    if packed.shape[0] != 2 + len(STATIC_KEYS):
+        raise ValueError(f"packed must be [8, K], got {tuple(packed.shape)}")
+    b, n1 = cols[0].shape
+    k = packed.shape[1]
+    if k and b:
+        _cuda.scatter_statics(packed, cols, k, b, n1)
+        launches["scatter_statics"] += 1
+    return statics
+
+
+def new_yata_stats(b: int, device="cpu") -> dict:
+    """Per-doc work counters the plain YATA versions fill when given
+    them (on the tables' device): ``scan_steps`` (rows visited by
+    conflict scans), ``deferred`` (level lanes whose gap check failed)
+    and ``chain`` (dependent loads in sequence: one per split, one per
+    level's gap check, two per integrated item plus three per scan
+    step)."""
+    return {k: torch.zeros(b, dtype=torch.int64, device=device)
+            for k in ("scan_steps", "deferred", "chain")}
+
+
+def _new_visit(rl: torch.Tensor):
+    """Per-launch visit scratch (-1: unmarked) and per-doc counters."""
+    visit = torch.full_like(rl, NULL)
+    counter = torch.zeros(rl.shape[0], dtype=torch.int32, device=rl.device)
+    return visit, counter
+
+
+def batch_step_plain(statics, dyn, splits, sched, delete_rows, stats=None):
+    """Plain PyTorch version of :func:`batch_step` (in place).  ``stats``
+    (from :func:`new_yata_stats`) accumulates the per-doc work."""
+    right, deleted, starts = dyn
+    _split_prepass_plain(right, deleted, splits, stats)
+    visit, counter = _new_visit(right)
+    for j in range(sched.shape[1]):
+        s = sched[:, j]
+        docs = torch.nonzero(s[:, 0] >= 0)[:, 0]  # padding entries do nothing
+        if docs.numel():
+            s = s[docs]
+            _integrate_plain(statics, right, starts, visit, counter, docs,
+                             s[:, 0], s[:, 1], s[:, 2], s[:, 3], stats)
+    _deletes_plain(deleted, delete_rows)
+    return right, deleted, starts
+
+
+def _check_step_shapes(splits, sched, sched_dims, delete_rows) -> None:
+    if splits.dim() != 3 or splits.shape[2] != 2:
+        raise ValueError("splits must be [B, S, 2]")
+    if sched.dim() != len(sched_dims) + 1 or sched.shape[-1] != sched_dims[-1]:
+        raise ValueError(f"schedule must be [B, ..., {sched_dims[-1]}]")
+    if delete_rows.dim() != 2:
+        raise ValueError("delete_rows must be [B, D]")
+
+
+@profiled("batch_step")
+def batch_step(statics, dyn, splits, sched, delete_rows):
+    """The per-item YATA step of every doc (``YTPU_KERNEL=seq``), in
+    place: the split pre-pass, then each ``sched`` entry (row, left,
+    right, seg) through the single-item integrate in causal order, then
+    the deletes.
+
+    statics: the six ``[B, N+1]`` int32 columns; dyn: ``(right_link [B,
+    N+1] i32, deleted [B, N+1] bool, starts [B, S+1] i32)``; splits
+    ``[B, S', 2]``, sched ``[B, M, 4]``, delete_rows ``[B, D]``, all
+    int32 and NULL-padded.  Returns ``dyn``."""
+    if not _on_cuda(*_yata_inputs(statics, dyn, splits, sched, delete_rows)):
+        return batch_step_plain(statics, dyn, splits, sched, delete_rows)
+    from . import _cuda
+
+    _check_yata(statics, dyn, splits, sched, delete_rows)
+    _check_step_shapes(splits, sched, (0, 4), delete_rows)
+    right = dyn[0]
+    if right.shape[0]:
+        visit = torch.full_like(right, NULL)
+        _cuda.batch_step([statics[k] for k in STATIC_KEYS], dyn, visit,
+                         splits, sched, delete_rows, EPOCH_MAX)
+        launches["batch_step"] += 1
+    return dyn
+
+
+def batch_step_levels_plain(statics, dyn, splits, lv_sched, delete_rows,
+                            scratch_base, stats=None):
+    """Plain PyTorch version of :func:`batch_step_levels` (in place)."""
+    right, deleted, starts = dyn
+    b, n1 = right.shape
+    s1 = starts.shape[1]
+    dev = right.device
+    _split_prepass_plain(right, deleted, splits, stats)
+    visit, counter = _new_visit(right)
+    w = lv_sched.shape[2]
+    rows = torch.arange(b, device=dev)[:, None].expand(b, 2 * w)
+    lanes = scratch_base.long()[:, None] + torch.arange(2 * w, device=dev)
+    lane_ids = torch.arange(w, device=dev)
+    null = torch.tensor(NULL, dtype=torch.int32, device=dev)
+    for lv in range(lv_sched.shape[1]):
+        e = lv_sched[:, lv]
+        k, l0, r0, chk = e[..., 0], e[..., 1], e[..., 2], e[..., 3]
+        succ, seg, fb_l, fb_r = e[..., 4], e[..., 5], e[..., 6], e[..., 7]
+        mask = k >= 0
+        safe_chk = torch.where(chk >= 0, chk, n1 - 1)
+        safe_seg = torch.where(seg >= 0, seg, s1 - 1)
+        st = starts.gather(1, _gather_idx(safe_seg, s1))
+        # (a) a lane's splice gap is intact iff its left's successor is
+        # still exactly its right (head gap: the segment head is)
+        fast = mask & torch.where(
+            chk == NULL, st == r0, right.gather(1, _gather_idx(safe_chk, n1)) == r0
+        )
+        # (b) one scatter of 2W unique targets: a chain head's left link
+        # and every member's own link; masked lanes write NULL to the
+        # doc's scratch rows
+        succ_v = torch.where(succ == GATHER_SUCC, r0, succ)
+        cond1 = fast & (l0 >= 0)
+        idx = torch.cat([torch.where(cond1, l0.long(), lanes[:, :w]),
+                         torch.where(fast, k.long(), lanes[:, w:])], 1)
+        val = torch.cat([torch.where(cond1, k, null),
+                         torch.where(fast, succ_v, null)], 1)
+        idx = torch.where(idx < 0, idx + n1, idx)
+        keep = (idx >= 0) & (idx < n1)
+        if bool(keep.all()):  # the engine's case: unique in-range targets
+            right.scatter_(1, idx, val)
+        else:
+            right[rows[keep], idx[keep]] = val[keep]
+        # head writes take seg raw (JAX: kernels.py:294)
+        hs = seg.long()
+        hs = torch.where(hs < 0, hs + s1, hs)
+        hkeep = fast & (l0 == NULL) & (hs >= 0) & (hs < s1)
+        starts[rows[:, :w][hkeep], hs[hkeep]] = k[hkeep]
+        if stats is not None:
+            stats["chain"] += mask.any(1).long()
+        # (c) true conflicts through the single-item integrate, in
+        # ascending lane order per doc
+        pending = mask & ~fast
+        if stats is not None:
+            stats["deferred"] += pending.sum(1)
+        docs = torch.nonzero(pending.any(1))[:, 0]
+        while docs.numel():
+            pend = pending[docs]
+            j = torch.where(pend, lane_ids, w).amin(1)
+            _integrate_plain(statics, right, starts, visit, counter, docs,
+                             k[docs, j], fb_l[docs, j], fb_r[docs, j],
+                             seg[docs, j], stats)
+            pending[docs, j] = False
+            docs = docs[pend.sum(1) > 1]
+    _deletes_plain(deleted, delete_rows)
+    return right, deleted, starts
+
+
+@profiled("batch_step_levels")
+def batch_step_levels(statics, dyn, splits, lv_sched, delete_rows,
+                      scratch_base):
+    """The level-parallel YATA step of every doc (``YTPU_KERNEL=levels``),
+    in place: the split pre-pass; then per level of ``lv_sched`` (``[B,
+    L, W, 8]`` rows of row, left, right, check, succ, seg, fb_left,
+    fb_right) the gap check of every lane, one scatter of the 2W link
+    writes of the fast lanes (masked lanes write NULL to rows
+    ``scratch_base + lane`` and ``scratch_base + W + lane``), the head
+    writes, and the deferred true conflicts through the single-item
+    integrate in ascending lane order; then the deletes.
+
+    ``scratch_base [B]`` is each doc's row count: the engine keeps 2W
+    spare rows past it.  Returns ``dyn``."""
+    args = (splits, lv_sched, delete_rows, scratch_base)
+    if not _on_cuda(*_yata_inputs(statics, dyn, *args)):
+        return batch_step_levels_plain(statics, dyn, *args)
+    from . import _cuda
+
+    _check_yata(statics, dyn, splits, lv_sched, delete_rows, scratch_base)
+    _check_step_shapes(splits, lv_sched, (0, 0, 8), delete_rows)
+    right = dyn[0]
+    b = right.shape[0]
+    if scratch_base.dim() != 1:
+        raise ValueError("scratch_base must be [B]")
+    if b:
+        visit = torch.full_like(right, NULL)
+        fast = torch.empty((b, max(1, lv_sched.shape[2])), dtype=torch.uint8,
+                           device=right.device)
+        _cuda.batch_step_levels([statics[k] for k in STATIC_KEYS], dyn,
+                                visit, fast, splits, lv_sched, delete_rows,
+                                scratch_base, EPOCH_MAX)
+        launches["batch_step_levels"] += 1
+    return dyn
 
 
 # ---------------------------------------------------------------------------
