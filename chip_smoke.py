@@ -60,8 +60,10 @@ script exits non-zero:
    - ``YTPU_KERNEL=seq``: ``BatchEngine(4096)`` on the card through the
      same flushes, its trimmed tables equal to the levels and the apply
      engines';
-   with each flush's host time split into plan, pack, statics (host pack;
-   H2D and scatter), dispatch, emit and the closing synchronise;
+   each flush runs under a CUDA activity trace (``torch.profiler``), and
+   its host time is split into plan, pack, statics (host pack; pinned
+   copy and launch), dispatch, emit and the closing synchronise, its
+   device time into kernels and copies, with the device's idle share;
 6. kernels: each kernel against its plain version on the card at its
    path's largest shapes (exact), with times from CUDA events (``ms``:
    per call, launch gaps included; the YATA steps restore their tables
@@ -70,7 +72,8 @@ script exits non-zero:
    ``{"kernels": [...]}`` line; each row's ``launches`` is its path's
    count (counts are zeroed just before each path and read just after);
    the YATA steps' rows add the longest per-doc chain of dependent loads
-   (``dep_chain``);
+   (``dep_chain``), which limits them (``limited_by``), and the measured
+   time per load;
 7. the last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -622,71 +625,94 @@ YATA_KERNELS = (
 )
 
 
-class StaticsTimer:
-    """Host time of the statics upload inside a flush: the whole of
-    ``_upload_statics`` (host pack, H2D, scatter kernel) and its host
-    pack ``_statics_delta``, each between two synchronises."""
+def device_split(prof) -> dict:
+    """Device time inside a traced run, in ms, from its CUDA activity
+    records: kernels (the statics scatter, the YATA steps, the rest) and
+    copies, ``busy`` the union of all their intervals (record_function
+    ranges left out), ``statics_h2d`` the host-to-device copy that the
+    statics scatter reads (the last one to start before it)."""
+    from torch.autograd import DeviceType
 
-    def __init__(self, eng):
-        self.eng = eng
-        self.t = {"upload": 0.0, "delta": 0.0}
-        self.rows = self.lanes = 0
-
-    def _wrap(self, key, fn):
-        def timed(*args, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            self.t[key] += time.perf_counter() - t0
-            if key == "delta" and out is not None:
-                # padding lanes target row cap, which no real row reaches
-                self.rows += int((out[1] != self.eng._cap).sum())
-                self.lanes += out.shape[1]
-            return out
-
-        return timed
-
-    def __enter__(self):
-        self.eng._upload_statics = self._wrap("upload", self.eng._upload_statics)
-        self.eng._statics_delta = self._wrap("delta", self.eng._statics_delta)
-        return self
-
-    def __exit__(self, *exc):
-        for name in ("_upload_statics", "_statics_delta"):
-            delattr(self.eng, name)
-        return False
+    ivs = []
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.name.startswith("ytpu.")):
+            continue
+        ivs.append((e.time_range.start, e.time_range.end, e.name))
+    ivs.sort()
+    out = dict.fromkeys(("k3", "step", "kernels", "h2d", "statics_h2d",
+                         "copies"), 0.0)
+    k3_start = min((a for a, _b, n in ivs if "scatter_statics" in n),
+                   default=None)
+    busy, hi = 0.0, float("-inf")
+    for a, b, name in ivs:
+        busy += max(0.0, b - max(a, hi))
+        hi = max(hi, b)
+        dur = (b - a) / 1e3
+        if name.startswith("Memcpy HtoD"):
+            out["h2d"] += dur
+            if k3_start is not None and a < k3_start:
+                out["statics_h2d"] = dur
+        elif name.startswith(("Memcpy", "Memset")):
+            out["copies"] += dur
+        else:
+            out["kernels"] += dur
+            if "scatter_statics" in name:
+                out["k3"] += dur
+            elif "batch_step" in name:
+                out["step"] += dur
+    out["busy"] = busy / 1e3
+    return out
 
 
 def yata_flush(eng) -> dict:
-    """One timed flush of an engine on the card, split into plan, pack
-    (without the statics), statics (host pack; H2D and scatter),
-    dispatch, emit and the closing synchronise."""
-    with StaticsTimer(eng) as st:
+    """One timed flush of an engine on the card under a CUDA activity
+    trace: its host time split into plan, pack (without the statics),
+    statics (host pack; pinned copy and launches), dispatch, emit and the
+    closing synchronise, from the flush metrics and the engine's phase
+    spans, and its device time from the trace (:func:`device_split`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.obs.tracer.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall = timed_flush(eng)
+    spans = {}
+    for ev in eng.obs.tracer.trace_events():
+        if ev.get("ph") == "X":
+            spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e6
+    check("ytpu.statics" in spans and "ytpu.statics_pack" in spans,
+          "the flush recorded no statics phase")
     m = dict(eng.last_flush_metrics)
+    dev = device_split(prof)
     return {
         "wall": wall, "plan": m["t_plan_s"] + m["t_compact_s"],
-        "pack": m["t_pack_s"] - st.t["upload"],
-        "statics_pack": st.t["delta"],
-        "statics_h2d_scatter": st.t["upload"] - st.t["delta"],
-        "statics_rows": st.rows, "statics_lanes": st.lanes,
+        "pack": m["t_pack_s"] - spans["ytpu.statics"],
+        "statics_pack": spans["ytpu.statics_pack"],
+        "statics_rest": spans["ytpu.statics"] - spans["ytpu.statics_pack"],
         "dispatch": m["t_dispatch_s"], "emit": m["t_emit_s"],
         "sync": wall - m["t_total_s"], "n_levels": m["n_levels"],
         "level_width": m["level_width"], "occupancy": m["schedule_occupancy"],
-        "realloc_bytes": m["realloc_bytes"],
+        "realloc_bytes": m["realloc_bytes"], "device": dev,
+        "idle": 1.0 - dev["busy"] / (wall * 1e3),
     }
 
 
 def log_yata_flush(lane: str, name: str, f: dict, smi: str) -> None:
+    d = f["device"]
     log(f"[yata] {lane} {name} ({smi}): wall {f['wall']:.3f}s = plan "
         f"{f['plan']:.3f} + pack {f['pack']:.3f} + statics host pack "
-        f"{f['statics_pack']:.3f} ({f['statics_rows']} rows in "
-        f"{f['statics_lanes']} lanes) + statics H2D "
-        f"and scatter {f['statics_h2d_scatter']:.3f} + dispatch "
-        f"{f['dispatch']:.3f} + emit {f['emit']:.3f} + closing sync "
-        f"{f['sync']:.3f}; L={f['n_levels']} W={f['level_width']} "
+        f"{f['statics_pack']:.3f} + statics pinned copy and launch "
+        f"{f['statics_rest']:.3f} + dispatch {f['dispatch']:.3f} + emit "
+        f"{f['emit']:.3f} + closing sync {f['sync']:.3f}; "
+        f"L={f['n_levels']} W={f['level_width']} "
         f"occupancy {f['occupancy']:.4f}")
+    log(f"[yata] {lane} {name} device (CUDA activity trace, ms): busy "
+        f"{d['busy']:.3f} = kernels {d['kernels']:.3f} (scatter_statics "
+        f"{d['k3']:.3f}, {'batch_step' if lane == 'seq' else 'batch_step_levels'} "
+        f"{d['step']:.3f}) + H2D {d['h2d']:.3f} (statics {d['statics_h2d']:.3f})"
+        f" + other copies {d['copies']:.3f}, overlaps counted once; idle "
+        f"{f['idle']:.6f} of the wall")
 
 
 def assert_yata_twins(eng, twin, what: str) -> None:
@@ -948,24 +974,28 @@ def once_ms(fn) -> float:
 def yata_bytes(name: str, args, stats) -> int:
     """The bytes the step must move on these inputs: every schedule input
     read once; per integrated item (every seq entry, every deferred level
-    lane) its six statics (24 B), three link or head reads and two link
-    writes (20 B); per conflict-scan step the visited row's six statics,
-    its link and its visit mark read and written (36 B); per level lane
-    slot the gap read of a real lane (4 B) and the two link writes every
-    slot makes, real or scratch (8 B); per split three link reads or
-    writes and two deleted bits (14 B); one byte per delete."""
+    lane) one gap read and two link writes (12 B), and for an item whose
+    conflict scan visits a row (``scanned``; the rest keep their gap and
+    need no statics) its five statics and the splice's link read (24 B);
+    per conflict-scan step the visited row's six statics, its link and
+    its visit mark read and written (36 B); per level lane slot the gap
+    read of a real lane (4 B) and the two link writes every slot makes,
+    real or scratch (8 B); per split three link reads or writes and two
+    deleted bits (14 B); one byte per delete."""
     splits, sched, dels = args[2], args[3], args[4]
     nbytes = sum(t.nbytes for t in args[2:] if isinstance(t, torch.Tensor))
     real = int((sched[..., 0] >= 0).sum())
     n_splits = int((splits[..., 0] >= 0).sum())
     n_dels = int(((dels >= 0) & (dels < args[1][0].shape[1])).sum())
     steps = int(stats["scan_steps"].sum())
+    scanned = int(stats["scanned"].sum())
     if name == "batch_step":
         items = real
     else:
         items = int(stats["deferred"].sum())
         nbytes += 4 * real + 8 * sched[..., 0].numel()
-    return nbytes + 44 * items + 36 * steps + 14 * n_splits + n_dels
+    return (nbytes + 12 * items + 24 * scanned + 36 * steps + 14 * n_splits
+            + n_dels)
 
 
 def yata_rows(yseen: dict, ylaunches: dict) -> list[dict]:
@@ -1031,6 +1061,7 @@ def yata_rows(yseen: dict, ylaunches: dict) -> list[dict]:
         ms = cuda_ms_restored(launch, restore)
         dev_ms = device_ms(launch, YATA_TIMED_LAUNCHES, restore)
         nbytes = yata_bytes(name, (statics, dyn, *rest), stats)
+        chain = int(stats["chain"].max())
         sched = rest[1]
         rows.append({
             "name": name, "route": "cuda",
@@ -1043,10 +1074,15 @@ def yata_rows(yseen: dict, ylaunches: dict) -> list[dict]:
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None,
-            # the longest per-doc chain of dependent loads (see
-            # kernels.new_yata_stats): the latency these kernels wait on
-            "dep_chain": int(stats["chain"].max()),
+            # what limits them is not a roofline bound but the longest
+            # per-doc chain of dependent loads (kernels.new_yata_stats):
+            # each load's address comes from the one before it, so the
+            # chain runs at one memory round trip a load however few
+            # bytes move; ns_per_dep_load is the measured time per load
+            "limited_by": "dep_chain", "dep_chain": chain,
+            "ns_per_dep_load": (dev_ms or ms) * 1e6 / max(1, chain),
             "scan_steps": int(stats["scan_steps"].sum()),
+            "scanned": int(stats["scanned"].sum()),
             "deferred": int(stats["deferred"].sum()),
         })
     return rows

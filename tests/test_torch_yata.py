@@ -143,8 +143,10 @@ def test_yata_plain_matches_jax(kernel_case, name, epoch_max, monkeypatch):
                   _to(st["dels"]), _to(st["scratch"]), stats)
         for a, g in zip(w, dyn):
             np.testing.assert_array_equal(a, g.numpy())
-    assert int(stats["scan_steps"].sum()) > 0
+    scanned = int(stats["scanned"].sum())
+    assert 0 < scanned <= int(stats["scan_steps"].sum())
     if name == "levels":
+        assert scanned <= int(stats["deferred"].sum())
         assert int(stats["deferred"].sum()) > 0
 
 

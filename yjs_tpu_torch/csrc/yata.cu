@@ -130,10 +130,18 @@ __device__ int32_t integrate_item(const Doc& d, int32_t counter,
   int32_t o = skip ? kNull : (left0 == kNull ? st : rl_l);
   const int32_t scan_base = counter;
   int32_t cnt = counter, clear = counter, left = left0;
-  const int64_t kk = gidx(k, n1);
-  const int32_t k_os = d.s.oslot[kk], k_oc = d.s.oclock[kk];
-  const int32_t k_rs = d.s.rslot[kk], k_rc = d.s.rclock[kk];
-  const uint32_t k_key = (uint32_t)d.s.key[kk];
+  // k's statics only serve the scan: an item whose gap is intact (most
+  // of them) reads none
+  int32_t k_os = kNull, k_oc = 0, k_rs = kNull, k_rc = 0;
+  uint32_t k_key = 0;
+  if (o != kNull && o != right0) {
+    const int64_t kk = gidx(k, n1);
+    k_os = d.s.oslot[kk];
+    k_oc = d.s.oclock[kk];
+    k_rs = d.s.rslot[kk];
+    k_rc = d.s.rclock[kk];
+    k_key = (uint32_t)d.s.key[kk];
+  }
   for (int steps = 0; o != kNull && o != right0 && steps < n1; ++steps) {
     sput(d.visit, n1, (int64_t)o, cnt);
     ++cnt;

@@ -873,11 +873,14 @@ class BatchEngine:
 
     def _upload_statics(self, plans) -> None:
         """Scatter this flush's statics delta (its own dispatch, ahead of
-        the levels/seq step that reads it)."""
-        self._ensure_statics()
-        packed = self._statics_delta(plans)
-        if packed is not None:
-            self._dispatch("statics", self._put_r(packed))
+        the levels/seq step that reads it).  Its host time is the
+        ``statics`` phase, the host pack within it ``statics_pack``."""
+        with self._phase_ctx("statics"):
+            self._ensure_statics()
+            with self._phase_ctx("statics_pack"):
+                packed = self._statics_delta(plans)
+            if packed is not None:
+                self._dispatch("statics", self._put_r(packed))
 
     def _statics_delta(self, plans):
         """This flush's NEW/changed rows as one packed [8, K] i32 block

@@ -549,6 +549,7 @@ def _integrate_plain(statics, rl, starts, visit, counter, docs, k, left0,
         steps = steps + run.to(steps.dtype)
     if stats is not None:
         stats["scan_steps"][docs] += steps.long()
+        stats["scanned"][docs] += (steps > 0).long()
         # dependent loads: the gap read, the splice read, three per step
         stats["chain"][docs] += 2 * valid.long() + 3 * steps.long()
 
@@ -660,12 +661,13 @@ def scatter_statics(statics, packed):
 def new_yata_stats(b: int, device="cpu") -> dict:
     """Per-doc work counters the plain YATA versions fill when given
     them (on the tables' device): ``scan_steps`` (rows visited by
-    conflict scans), ``deferred`` (level lanes whose gap check failed)
-    and ``chain`` (dependent loads in sequence: one per split, one per
-    level's gap check, two per integrated item plus three per scan
-    step)."""
+    conflict scans), ``scanned`` (integrated items whose scan visited a
+    row; the others keep the gap they were planned into), ``deferred``
+    (level lanes whose gap check failed) and ``chain`` (dependent loads
+    in sequence: one per split, one per level's gap check, two per
+    integrated item plus three per scan step)."""
     return {k: torch.zeros(b, dtype=torch.int64, device=device)
-            for k in ("scan_steps", "deferred", "chain")}
+            for k in ("scan_steps", "scanned", "deferred", "chain")}
 
 
 def _new_visit(rl: torch.Tensor):
