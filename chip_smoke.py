@@ -10,7 +10,7 @@ script exits non-zero:
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and
    power limit;
-2. build: the native plan core (g++) and the seven CUDA sources (one
+2. build: the native plan core (g++) and the nine CUDA sources (one
    nvcc per source, all at once), with build seconds and each kernel's
    registers and spills;
 3. main path: a room server's fleet, ``BatchEngine(n_docs=4096)`` on the
@@ -64,7 +64,31 @@ script exits non-zero:
    its host time is split into plan, pack, statics (host pack; pinned
    copy and launch), dispatch, emit and the closing synchronise, its
    device time into kernels and copies, with the device's idle share;
-6. kernels: each kernel against its plain version on the card at its
+6. planner path: the Python mirror's device cold planner
+   (``YTPU_NO_NATIVE_PLAN=1``, ``YTPU_PLAN_SEGMENT`` unset, so the
+   whole-chunk ``device`` mode) on ``BatchEngine(1024)`` on the card
+   beside a CPU twin, one doc per distinct fixture trace (a 4096-doc
+   fleet of these traces plans the same chunk, its other 3072 docs
+   replaying the plan cache):
+   - flush 1 loads the traces (one chunk conflict scan, K12, over every
+     doc's refs);
+   - flush 2 gives every doc a seeded burst of 40 edits by three
+     interleaving editors (a chunk scan and one chunk anchor lookup, K11,
+     over every doc's fragment index);
+   - flush 3 gives doc 0 a second burst (a lone cold doc plans per doc);
+   after each, the tables equal the twin's, nothing is demoted or rolled
+   back and ``plan_threads`` is the co-planned doc count; flush 1's
+   trimmed tables equal the main path's (native planner); 32 sampled
+   docs' texts and encoded states equal a CPU ``Doc``; each flush runs
+   under a CUDA activity trace, its host time split into plan (the
+   segment planner's share), pack, dispatch and emit;
+7. broadcast path (the B4 replay shape): one trace planned once by a
+   Python mirror on the card and fanned out over 4096 docs by
+   ``apply_plan_shared`` (K7a) and ``batch_step_levels_shared`` (K7b),
+   each held against ``apply_lanes`` and ``batch_step_levels`` fed the
+   same inputs replicated per doc, table for table, the two against each
+   other on the live rows, and doc 0's text against a CPU ``Doc``;
+8. kernels: each kernel against its plain version on the card at its
    path's largest shapes (exact), with times from CUDA events (``ms``:
    per call, launch gaps included; the YATA steps restore their tables
    before each timed launch and time it alone), device time from
@@ -73,8 +97,9 @@ script exits non-zero:
    count (counts are zeroed just before each path and read just after);
    the YATA steps' rows add the longest per-doc chain of dependent loads
    (``dep_chain``), which limits them (``limited_by``), and the measured
-   time per load;
-7. the last line: ``{"ok": true, "device": {...}}``.
+   time per load; the planner kernels' rows add the pageable host copies
+   around them (``h2d_ms``, ``d2h_ms``);
+9. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -221,7 +246,9 @@ def _clone(x):
 
 class Capture:
     """Keeps the largest input each kernel wrapper saw on a path (for
-    the kernel phase), delegating every call to the wrapper itself."""
+    the kernel phase), delegating every call to the wrapper itself.
+    ``watched`` holds ``(name, size)`` or ``(name, size, key)`` entries:
+    ``key(args)`` names the variant the input is kept under."""
 
     def __init__(self, kernels, watched, device_type: str = "cuda"):
         self.kernels = kernels
@@ -232,16 +259,17 @@ class Capture:
 
     def __enter__(self):
         k = self.kernels
-        for name, size in self.watched:
+        for name, size, *key in self.watched:
             orig = getattr(k, name)
             self._orig[name] = orig
 
-            def wrapped(*args, _orig=orig, _name=name, _size=size):
-                best = self.seen.get(_name)
+            def wrapped(*args, _orig=orig, _size=size,
+                        _key=(key[0] if key else lambda a, n=name: n)):
                 # the CPU twin's calls are not kept
                 if _first_tensor(args).device.type == self.device_type:
+                    best = self.seen.get(_key(args))
                     if best is None or _size(args) > _size(best):
-                        self.seen[_name] = _clone(args)
+                        self.seen[_key(args)] = _clone(args)
                 return _orig(*args)
 
             setattr(k, name, wrapped)
@@ -295,6 +323,11 @@ def warm_up(trace: bytes) -> None:
     one = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
     K.state_vector_kernel(one, one, 1)
     K.diff_mask_kernel(one, one, one, one)
+    lane = torch.zeros(1, dtype=torch.int64, device="cuda")
+    K.conflict_scan(*[lane] * 7, lane)
+    K.conflict_scan(*[lane] * 7)
+    K.anchor_lookup(lane, lane)
+    K.apply_plan_shared((one, one.bool(), one), one[0], 0, 0, 1)
     torch.cuda.synchronize()
 
 
@@ -627,10 +660,11 @@ YATA_KERNELS = (
 
 def device_split(prof) -> dict:
     """Device time inside a traced run, in ms, from its CUDA activity
-    records: kernels (the statics scatter, the YATA steps, the rest) and
-    copies, ``busy`` the union of all their intervals (record_function
-    ranges left out), ``statics_h2d`` the host-to-device copy that the
-    statics scatter reads (the last one to start before it)."""
+    records: kernels (the statics scatter, the YATA steps, the rest, and
+    ``by_name`` per kernel) and copies (``d2h`` among the others),
+    ``busy`` the union of all their intervals (record_function ranges
+    left out), ``statics_h2d`` the host-to-device copy that the statics
+    scatter reads (the last one to start before it)."""
     from torch.autograd import DeviceType
 
     ivs = []
@@ -642,7 +676,8 @@ def device_split(prof) -> dict:
         ivs.append((e.time_range.start, e.time_range.end, e.name))
     ivs.sort()
     out = dict.fromkeys(("k3", "step", "kernels", "h2d", "statics_h2d",
-                         "copies"), 0.0)
+                         "d2h", "copies"), 0.0)
+    by_name = {}
     k3_start = min((a for a, _b, n in ivs if "scatter_statics" in n),
                    default=None)
     busy, hi = 0.0, float("-inf")
@@ -656,13 +691,17 @@ def device_split(prof) -> dict:
                 out["statics_h2d"] = dur
         elif name.startswith(("Memcpy", "Memset")):
             out["copies"] += dur
+            if name.startswith("Memcpy DtoH"):
+                out["d2h"] += dur
         else:
             out["kernels"] += dur
+            by_name[name] = by_name.get(name, 0.0) + dur
             if "scatter_statics" in name:
                 out["k3"] += dur
             elif "batch_step" in name:
                 out["step"] += dur
     out["busy"] = busy / 1e3
+    out["by_name"] = by_name
     return out
 
 
@@ -728,7 +767,7 @@ def assert_yata_twins(eng, twin, what: str) -> None:
         f"({tuple(eng._statics['client_key'].shape)} each)")
 
 
-def assert_trimmed(eng, want: list, what: str) -> list:
+def assert_trimmed(eng, want: list, what: str, tag: str = "yata") -> list:
     """Tables trimmed to each doc's live rows and segments equal
     ``want`` (another lane's, after the same flushes)."""
     from yjs_tpu_torch.ops.carry import trim_tables
@@ -740,7 +779,7 @@ def assert_trimmed(eng, want: list, what: str) -> list:
         if g is not None:
             check(all(np.array_equal(a, b) for a, b in zip(g, w)),
                   f"{what}: doc {i}'s trimmed tables differ")
-    log(f"[yata] {what}: trimmed tables equal")
+    log(f"[{tag}] {what}: trimmed tables equal")
     return got
 
 
@@ -867,7 +906,420 @@ def yata_path(traces: list[bytes], edits: dict[int, list[bytes]],
     return out
 
 
-# -- phase 6 ----------------------------------------------------------------------
+# -- phase 6: the Python mirror's device cold planner ------------------------------
+
+
+N_PLANNER_DOCS = 1024  # one doc per distinct fixture trace
+N_BURST_OPS = 40
+PLANNER_KERNELS = (
+    ("conflict_scan", lambda a: a[0].numel(),
+     lambda a: "conflict_scan" if len(a) < 8 or a[7] is None
+     else "conflict_scan_chunk"),
+    ("anchor_lookup", lambda a: a[1].numel()),
+)
+
+
+def interleaved_burst(held: list[bytes], seed: int,
+                      n_ops: int = N_BURST_OPS) -> list[bytes]:
+    """A seeded burst in the ``interleaved`` shape of the JAX package's
+    segment-planner corpus (``tests/test_segment_planner.py``): three
+    editors (clients 300-302) that hold ``held`` insert one char at a
+    random position (a quarter of the edits delete one), one update an
+    edit; after each edit, with chance 0.3, one editor syncs another.  A
+    sync carries what the receiver lacks (the corpus sends the whole
+    state, which integrates to the same doc)."""
+    import yjs_tpu_torch as Y
+
+    gen = random.Random(seed)
+    docs = []
+    for k in range(3):
+        d = Y.Doc(gc=False)
+        d.client_id = 300 + k
+        for u in held:
+            Y.apply_update(d, u)
+        docs.append(d)
+    out = []
+    while len(out) < n_ops:
+        j = gen.randrange(3)
+        d = docs[j]
+        t = d.get_text("text")
+        sv = Y.encode_state_vector(d)
+        if len(t) and gen.random() < 0.25:
+            t.delete(gen.randrange(len(t)), 1)
+        else:
+            t.insert(gen.randrange(len(t) + 1), gen.choice("abcdef "))
+        out.append(Y.encode_state_as_update(d, sv))
+        if gen.random() < 0.3:
+            k = gen.randrange(3)
+            if k != j:
+                other = docs[k]
+                Y.apply_update(other, Y.encode_state_as_update(
+                    d, Y.encode_state_vector(other)))
+    return out
+
+
+def _burst_job(job):
+    held, seed = job
+    return interleaved_burst(held, seed)
+
+
+def make_bursts(helds: list[list[bytes]], first_seed: int) -> list:
+    """One burst per doc (seed ``first_seed + doc``), generated in
+    parallel by spawned worker processes, one a core."""
+    import multiprocessing
+
+    jobs = [(held, first_seed + i) for i, held in enumerate(helds)]
+    workers = max(1, min(8, os.cpu_count() or 1, len(jobs)))
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(workers) as pool:
+        return pool.map(_burst_job, jobs, chunksize=16)
+
+
+class PlannerTimer:
+    """Host time inside the segment planner (``plan_chunk`` and the
+    per-doc ``plan_doc``, outermost calls only) and the co-planned doc
+    count of each ``plan_chunk`` call, by wrapping the module's two
+    entry points (the engine and the mirror call them through it)."""
+
+    def __init__(self):
+        from yjs_tpu_torch.ops import segment_planner
+
+        self.sp = segment_planner
+        self.t = 0.0
+        self.co_planned: list[int] = []
+        self._depth = 0
+        self._orig = {}
+
+    def _wrap(self, fn, chunk: bool):
+        def timed(items, *args, **kw):
+            if chunk:
+                self.co_planned.append(
+                    sum(1 for q, _s in items if q is not None))
+            self._depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(items, *args, **kw)
+            finally:
+                self._depth -= 1
+                if not self._depth:
+                    self.t += time.perf_counter() - t0
+
+        return timed
+
+    def reset(self) -> None:
+        self.t = 0.0
+        self.co_planned = []
+
+    def __enter__(self):
+        for name in ("plan_chunk", "plan_doc"):
+            self._orig[name] = getattr(self.sp, name)
+            setattr(self.sp, name,
+                    self._wrap(self._orig[name], name == "plan_chunk"))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.sp, name, fn)
+        return False
+
+
+def planner_flush(eng, timer: PlannerTimer) -> dict:
+    """One timed flush of a Python-mirror engine on the card under a CUDA
+    activity trace: its host time split into plan (the planner's share
+    from ``timer``), pack, dispatch, emit and the closing synchronise,
+    its device time from the trace; checks that nothing was demoted,
+    rolled back or sent to the CPU core and that ``plan_threads`` is the
+    co-planned doc count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    timer.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall = timed_flush(eng)
+    m = dict(eng.last_flush_metrics)
+    check(m["n_demoted"] == 0 and m["n_rolled_back"] == 0 and not eng.fallback,
+          f"the planner flush demoted {m['n_demoted']} and rolled back "
+          f"{m['n_rolled_back']} docs")
+    want = max(timer.co_planned, default=1)
+    check(m["plan_threads"] == want,
+          f"plan_threads {m['plan_threads']} != co-planned {want}")
+    dev = device_split(prof)
+    k12 = sum(v for k, v in dev["by_name"].items()
+              if any(s in k for s in ("scan_tiles", "scan_offsets",
+                                       "add_offsets")))
+    k11 = sum(v for k, v in dev["by_name"].items() if "anchor_lookup" in k)
+    return {
+        "wall": wall, "plan": m["t_plan_s"] + m["t_compact_s"],
+        "planner": timer.t, "pack": m["t_pack_s"],
+        "dispatch": m["t_dispatch_s"], "emit": m["t_emit_s"],
+        "sync": wall - m["t_total_s"], "plan_threads": m["plan_threads"],
+        "cold": m["plan_cache_misses"], "fast": m["plan_segment_fast"],
+        "residue": m["plan_segment_residue"], "device": dev,
+        "k12": k12, "k11": k11, "idle": 1.0 - dev["busy"] / (wall * 1e3),
+    }
+
+
+def log_planner_flush(name: str, f: dict, smi: str) -> None:
+    d = f["device"]
+    log(f"[planner] {name} ({smi}): wall {f['wall']:.3f}s = plan "
+        f"{f['plan']:.3f} (segment planner {f['planner']:.3f}, "
+        f"{f['planner'] / max(f['plan'], 1e-9):.4f} of plan) + pack "
+        f"{f['pack']:.3f} + dispatch {f['dispatch']:.3f} + emit "
+        f"{f['emit']:.3f} + closing sync {f['sync']:.3f}; {f['cold']} cold "
+        f"docs, plan_threads {f['plan_threads']}, fast-set structs "
+        f"{f['fast']}, residue {f['residue']}")
+    log(f"[planner] {name} device (CUDA activity trace, ms): busy "
+        f"{d['busy']:.3f} = kernels {d['kernels']:.3f} (conflict_scan "
+        f"{f['k12']:.3f}, anchor_lookup {f['k11']:.3f}) + H2D {d['h2d']:.3f}"
+        f" + D2H {d['d2h']:.3f} + other copies {d['copies'] - d['d2h']:.3f}, "
+        f"overlaps counted once; idle {f['idle']:.6f} of the wall")
+
+
+def planner_path(traces: list[bytes], main_trimmed: list, smi: str,
+                 device: str = "cuda", n_docs: int = N_PLANNER_DOCS) -> dict:
+    """The Python mirror's cold planner (``YTPU_NO_NATIVE_PLAN=1``,
+    ``YTPU_PLAN_SEGMENT`` unset: the whole-chunk device mode) on
+    ``BatchEngine(1024)`` on the card beside a CPU twin: flush 1 loads
+    one distinct trace a doc (one chunk conflict scan over every doc),
+    flush 2 gives every doc a seeded interleaved burst (a chunk scan and
+    one chunk anchor lookup), flush 3 a second burst to doc 0 alone (the
+    per-doc scan and lookup).  The plan cache is emptied before each
+    engine's flush, so the twin plans every doc on the plain kernels.
+    Returns the flushes' splits."""
+    import yjs_tpu_torch as Y
+    from yjs_tpu_torch.ops import BatchEngine, plan_cache
+    from yjs_tpu_torch.ops.columns import DocMirror
+
+    n_docs = min(n_docs, len(traces))
+    saved = {k: os.environ.get(k)
+             for k in ("YTPU_NO_NATIVE_PLAN", "YTPU_PLAN_SEGMENT")}
+    out = {"n_docs": n_docs}
+    try:
+        os.environ["YTPU_NO_NATIVE_PLAN"] = "1"
+        os.environ.pop("YTPU_PLAN_SEGMENT", None)
+        t0 = time.perf_counter()
+        bursts = make_bursts([[traces[i]] for i in range(n_docs)], 500)
+        extra = interleaved_burst([traces[0], *bursts[0]], 499)
+        out["t_bursts"] = time.perf_counter() - t0
+        log_of = {i: [traces[i], *bursts[i]] for i in range(n_docs)}
+        log_of[0] += extra
+        plan_cache.reset_cache()
+        eng = BatchEngine(n_docs, device=device)
+        twin = BatchEngine(n_docs, device="cpu")
+        check(all(type(m) is DocMirror for m in eng.mirrors),
+              "the planner path does not run on Python mirrors")
+        steps = (
+            ("flush 1", {i: [traces[i]] for i in range(n_docs)}),
+            ("flush 2", {i: bursts[i] for i in range(n_docs)}),
+            ("flush 3", {0: extra}),
+        )
+        with PlannerTimer() as timer:
+            for k, (name, ups) in enumerate(steps, 1):
+                for e in (eng, twin):
+                    for i, us in ups.items():
+                        for u in us:
+                            e.queue_update(i, u)
+                # each engine plans cold: the process-global plan cache is
+                # emptied before each flush, so the twin runs the plain
+                # planner kernels itself instead of replaying the card's
+                plan_cache.reset_cache()
+                out[f"flush{k}"] = f = planner_flush(eng, timer)
+                plan_cache.reset_cache()
+                t0 = time.perf_counter()
+                twin.flush()
+                out[f"twin{k}"] = time.perf_counter() - t0
+                tm = twin.last_flush_metrics
+                check(tm["plan_cache_hits"] == 0
+                      and tm["plan_cache_misses"] == f["cold"],
+                      f"planner {name}: the twin replayed {tm['plan_cache_hits']}"
+                      f" plans and planned {tm['plan_cache_misses']} cold, "
+                      f"the card {f['cold']}")
+                log_planner_flush(name, f, smi)
+                assert_twins(eng, twin, f"planner {name}", "planner")
+                if k == 1:
+                    assert_trimmed(eng, main_trimmed[0][:n_docs],
+                                   "planner flush 1 against the main path's "
+                                   "apply lane (native planner)", "planner")
+        check(out["flush3"]["plan_threads"] == 1,
+              "flush 3's lone cold doc was not planned per doc")
+        gen = random.Random(4)
+        sample = sorted({0, *gen.sample(range(n_docs), min(N_EXPORTED, n_docs) - 1)})
+        for i in sample:
+            doc = Y.Doc(gc=False)
+            for u in log_of[i]:
+                Y.apply_update(doc, u)
+            check(eng.text(i) == doc.get_text("text").to_string(),
+                  f"doc {i}: planner-path text differs from the CPU Doc")
+            check(Y.merge_updates([eng.encode_state_as_update(i)])
+                  == Y.merge_updates([Y.encode_state_as_update(doc)]),
+                  f"doc {i}: planner-path encoded state differs from the CPU Doc")
+        log(f"[planner] {len(sample)} sampled docs: texts and encoded states "
+            "equal the CPU Doc")
+        out["burst_updates"] = sum(len(b) for b in bursts)
+        del eng, twin
+        plan_cache.reset_cache()
+    finally:
+        for k, v in saved.items():
+            restore_env(k, v)
+    return out
+
+
+# -- phase 7: broadcast replay (the B4 shape) --------------------------------------
+
+
+N_BROADCAST_DOCS = 4096
+BROADCAST_KERNELS = (
+    ("apply_plan_shared", lambda a: a[1].numel()),
+    ("batch_step_levels_shared", lambda a: a[3].numel()),
+)
+
+
+def shared_plan(trace: bytes, device) -> dict:
+    """One trace planned once by a Python mirror on the card (its segment
+    planner's kernels there), packed as the broadcast kernels take it:
+    the K7a lanes, the K7b statics (six ``[cap+1]`` columns), splits,
+    level schedule and deletes, and the widths."""
+    from yjs_tpu_torch.ops import kernels as K
+    from yjs_tpu_torch.ops.columns import DocMirror
+    from yjs_tpu_torch.ops.engine import _STATIC_COLS
+
+    mirror = DocMirror("text", device=device)
+    mirror.ingest(trace, False)
+    t0 = time.perf_counter()
+    plan = mirror.prepare_step(want_levels=True)
+    t_plan = time.perf_counter() - t0
+    n = mirror.n_rows
+    w = max(plan.max_width, 1)
+    cap = n + 2 * w
+    s1 = max(8, mirror.n_segs) + 1
+    cols = mirror.static_columns()
+    statics = {}
+    for key, fill, _dtype in _STATIC_COLS:
+        col = np.full(cap + 1, fill, np.int64)
+        col[:n] = cols[key]
+        col = col.astype(np.uint32).view(np.int32) if key == "client_key" \
+            else col.astype(np.int32)
+        statics[key] = torch.from_numpy(col).to(device)
+    packed = plan.packed_levels()
+    lv = np.full((max(1, len(packed)), w, 8), K.NULL, np.int32)
+    for j, entries in enumerate(packed):
+        if entries:
+            lv[j, : len(entries)] = entries
+    splits = np.full((max(1, len(plan.splits)), 2), K.NULL, np.int32)
+    if plan.splits:
+        splits[: len(plan.splits)] = np.asarray(plan.splits, np.int32)
+    dels = np.full(max(1, len(plan.delete_rows)), K.NULL, np.int32)
+    if plan.delete_rows:
+        dels[: len(plan.delete_rows)] = np.asarray(plan.delete_rows, np.int32)
+
+    def pad(idx, minimum, oob):
+        i = np.full(max(minimum, 1 << max(0, (len(idx) - 1).bit_length())),
+                    oob, np.int32)
+        i[: len(idx)] = np.asarray(idx, np.int32)
+        return i
+
+    rows = pad(plan.link_rows, 64, cap + 1)
+    vals = np.full(len(rows), K.NULL, np.int32)
+    vals[: len(plan.link_vals)] = plan.link_vals
+    segs = pad(plan.head_segs, 8, s1)
+    hvals = np.full(len(segs), K.NULL, np.int32)
+    hvals[: len(plan.head_vals)] = plan.head_vals
+    dl = pad(plan.delete_rows, 64, cap + 1)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return {
+        "mirror": mirror, "t_plan": t_plan, "n": n, "cap": cap, "s1": s1,
+        "lanes": to(np.concatenate([rows, vals, segs, hvals, dl])),
+        "k_l": len(rows), "k_h": len(segs), "k_d": len(dl),
+        "statics": statics, "splits": to(splits), "lv": to(lv),
+        "dels": to(dels),
+    }
+
+
+def broadcast_path(trace: bytes, n_docs: int = N_BROADCAST_DOCS,
+                   device: str = "cuda") -> dict:
+    """The B4 replay shape: one trace planned once, fanned out over
+    ``n_docs`` docs by K7a (the resolved delta) and K7b (the levels
+    plan); each held against K1 and K6 fed the same inputs replicated
+    per doc, table for table, K7a's and K7b's live rows against each
+    other, and doc 0's text (ranked on the card) against a CPU Doc."""
+    import yjs_tpu_torch as Y
+    from yjs_tpu_torch.ops import kernels as K
+    from yjs_tpu_torch.ops.engine import visible_text
+
+    dev = torch.device(device)
+    sp = shared_plan(trace, dev)
+    b, cap, s1, n = n_docs, sp["cap"], sp["s1"], sp["n"]
+    k_l, k_h, k_d = sp["k_l"], sp["k_h"], sp["k_d"]
+
+    def fresh():
+        return (torch.full((b, cap + 1), K.NULL, dtype=torch.int32, device=dev),
+                torch.zeros((b, cap + 1), dtype=torch.bool, device=dev),
+                torch.full((b, s1), K.NULL, dtype=torch.int32, device=dev))
+
+    lanes = sp["lanes"]
+    out_a = K.apply_plan_shared(fresh(), lanes, k_l, k_h, k_d)
+    # K1 on the same delta, once per doc: [cnt 4B][rows|vals][segs|hvals][dels]
+    rows, vals = lanes[:k_l], lanes[k_l : 2 * k_l]
+    segs, hvals = lanes[2 * k_l : 2 * k_l + k_h], lanes[2 * k_l + k_h : 2 * k_l + 2 * k_h]
+    dl = lanes[2 * k_l + 2 * k_h :]
+    counts = torch.tensor([0] * b + [k_l] * b + [k_h] * b + [k_d] * b,
+                          dtype=torch.int32, device=dev)
+    k1_lanes = torch.cat([counts] + [x.repeat(b) for x in
+                                     (rows, vals, segs, hvals, dl)])
+    k1_widths = (0, b * k_l, b * k_h, b * k_d)
+    out_1 = K.apply_lanes(fresh(), k1_lanes, *k1_widths)
+    for name, x, y in zip(("right", "deleted", "starts"), out_a, out_1):
+        check(torch.equal(x, y), f"K7a's {name} differs from K1's on the replicated delta")
+    log(f"[broadcast] apply_plan_shared over {b} docs equals apply_lanes on the "
+        f"delta replicated per doc ({b * (2 * k_l + 2 * k_h + k_d)} lanes)")
+
+    scratch = torch.full((b,), n, dtype=torch.int32, device=dev)
+    args_b = (sp["statics"], fresh(), sp["splits"], sp["lv"], sp["dels"],
+              scratch)
+    inputs_b = _clone(args_b)
+    out_b = K.batch_step_levels_shared(*args_b)
+    rep = {k: v.expand(b, -1).contiguous() for k, v in sp["statics"].items()}
+    args_6 = (rep, fresh(), sp["splits"].expand(b, -1, -1).contiguous(),
+              sp["lv"].expand(b, -1, -1, -1).contiguous(),
+              sp["dels"].expand(b, -1).contiguous(), scratch)
+    inputs_6 = _clone(args_6)
+    out_6 = K.batch_step_levels(*args_6)
+    for name, x, y in zip(("right", "deleted", "starts"), out_b, out_6):
+        check(torch.equal(x, y), f"K7b's {name} differs from K6's on the replicated plan")
+    log(f"[broadcast] batch_step_levels_shared over {b} docs equals "
+        f"batch_step_levels on the plan replicated per doc (schedule "
+        f"{tuple(sp['lv'].shape)} shared, {tuple(sp['lv'].shape)} x {b} replicated)")
+    segs_n = sp["mirror"].n_segs
+    for name, x, y, w in zip(("right", "deleted", "starts"), out_a, out_b,
+                             (n, n, segs_n)):
+        check(torch.equal(x[:, :w], y[:, :w]),
+              f"K7a's and K7b's live {name} rows differ")
+    log("[broadcast] K7a's and K7b's live rows are equal")
+    m = sp["mirror"]
+    text_seg = m.segments[("text", None, K.NULL)]
+    valid = torch.zeros((1, cap + 1), dtype=torch.bool)
+    valid[0, :n] = torch.from_numpy(np.asarray(m.row_seg) == text_seg)
+    d = K.list_ranks(out_b[0][:1].contiguous(), valid.to(dev))[0].cpu().numpy()
+    rows_in_order = np.nonzero(d >= 0)[0]
+    rows_in_order = rows_in_order[np.argsort(-d[rows_in_order], kind="stable")]
+    deleted = out_b[1][0].cpu().numpy()
+    text = visible_text(m, rows_in_order, deleted[rows_in_order])
+    doc = Y.Doc(gc=False)
+    Y.apply_update(doc, trace)
+    check(text == doc.get_text("text").to_string(),
+          "broadcast doc 0's text differs from the CPU Doc")
+    log(f"[broadcast] doc 0's text ({len(text)} chars) ranked on the card "
+        f"equals the CPU Doc; the trace planned in {sp['t_plan']:.3f}s")
+    return {
+        "apply_plan_shared": (fresh(), lanes, k_l, k_h, k_d),
+        "batch_step_levels_shared": inputs_b,
+        "apply_lanes_replicated": (fresh(), k1_lanes, *k1_widths),
+        "batch_step_levels_replicated": inputs_6,
+        "t_plan": sp["t_plan"], "n": n, "cap": cap,
+        "schedule": tuple(sp["lv"].shape),
+    }
+
+
+# -- phase 8 ----------------------------------------------------------------------
 
 
 def cuda_ms(fn, n: int = TIMED_LAUNCHES) -> float:
@@ -1088,8 +1540,220 @@ def yata_rows(yseen: dict, ylaunches: dict) -> list[dict]:
     return rows
 
 
+def host_copy_ms(host: list, outs: list) -> tuple[float, float]:
+    """ms of the pageable host-to-device copies of ``host`` (numpy) and
+    of the device-to-host copies of ``outs``, as ``kernels._run_padded``
+    makes them around a planner kernel, from CUDA events (5 calls each).
+    ``outs`` are whole padded outputs; the planner copies back only the
+    real lanes, so the D2H time is an upper bound."""
+    h2d = cuda_ms(lambda: [torch.from_numpy(a).to("cuda") for a in host], 5)
+    d2h = cuda_ms(lambda: [t.cpu() for t in outs], 5)
+    return h2d, d2h
+
+
+def planner_rows(plseen: dict, pl_launches: dict) -> list[dict]:
+    """K12 (chunk and per doc) and K11 against their plain versions at
+    the largest input the planner path gave each, with the copies around
+    them."""
+    from yjs_tpu_torch.ops import kernels as K
+
+    rows = []
+    for name, line in (("conflict_scan_chunk", 604), ("conflict_scan", 548)):
+        args = plseen[name]
+        cols, doc = args[:7], (args[7] if len(args) > 7 else None)
+        got = K.conflict_scan(*cols, doc)
+        ref = K.conflict_scan_plain(*cols, doc)
+        err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+        ms = cuda_ms(lambda: K.conflict_scan(*cols, doc))
+        dev_ms = device_ms(lambda: K.conflict_scan(*cols, doc))
+        plain_ms = cuda_ms(lambda: K.conflict_scan_plain(*cols, doc), 5)
+        ins = [t for t in args if t is not None]
+        h2d, d2h = host_copy_ms([t.cpu().numpy() for t in ins], list(got))
+        n = cols[0].numel()
+        nbytes = sum(t.nbytes for t in ins) + sum(t.nbytes for t in got)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "yjs_tpu_torch/csrc/conflict_scan.cu",
+            "replaces": f"yjs_tpu/ops/kernels.py:{line}",
+            "shape": f"lanes={n} columns={len(ins)} int64", "path": "planner",
+            "launches": pl_launches[name], "max_abs_err": err,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "h2d_ms": h2d, "d2h_ms": d2h,
+        })
+    flat, q = plseen["anchor_lookup"]
+    got = K.anchor_lookup(flat, q)
+    ref = K.anchor_lookup_plain(flat, q)
+    err = max_abs_err(got, ref)
+    ms = cuda_ms(lambda: K.anchor_lookup(flat, q))
+    dev_ms = device_ms(lambda: K.anchor_lookup(flat, q))
+    plain_ms = cuda_ms(lambda: K.anchor_lookup_plain(flat, q), 5)
+
+    def library():
+        return torch.searchsorted(flat, q, right=True) - 1
+
+    check(torch.equal(library(), ref), "torch.searchsorted disagrees with K11's plain version")
+    lib_ms = cuda_ms(library)
+    h2d, d2h = host_copy_ms([flat.cpu().numpy(), q.cpu().numpy()], [got])
+    rows.append({
+        "name": "anchor_lookup", "route": "cuda",
+        "source": "yjs_tpu_torch/csrc/anchor_lookup.cu",
+        "replaces": "yjs_tpu/ops/kernels.py:531",
+        "shape": f"haystack={flat.numel()} queries={q.numel()} int64",
+        "path": "planner", "launches": pl_launches["anchor_lookup"],
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": lookup_bytes(flat, q) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": lib_ms, "h2d_ms": h2d, "d2h_ms": d2h,
+    })
+    return rows
+
+
+def lookup_bytes(flat: torch.Tensor, q: torch.Tensor) -> int:
+    """The bytes these searches need: each query read and each answer
+    written once (8 B each), and each haystack entry that some search
+    visits read once (the rest of the haystack is never touched)."""
+    hay, keys = flat.cpu().numpy(), q.cpu().numpy()
+    lo = np.zeros(len(keys), np.int64)
+    hi = np.full(len(keys), len(hay), np.int64)
+    seen = []
+    while True:
+        act = lo < hi
+        if not act.any():
+            break
+        mid = lo + ((hi - lo) >> 1)
+        seen.append(mid[act])
+        go = act & (hay[np.minimum(mid, max(0, len(hay) - 1))] <= keys)
+        lo = np.where(go, mid + 1, lo)
+        hi = np.where(act & ~go, mid, hi)
+    visited = np.unique(np.concatenate(seen)).size if seen else 0
+    return 16 * len(keys) + 8 * visited
+
+
+def shared_lane_writes(lanes: torch.Tensor, k_l: int, k_h: int, n1: int,
+                       s1: int) -> tuple[int, int, int]:
+    """In-bounds link, head and delete targets of one shared delta (after
+    the wrap of negative indices), each written once per doc."""
+    v = lanes.long().cpu().numpy()
+
+    def inb(x, n):
+        x = np.where(x < 0, x + n, x)
+        return int(((x >= 0) & (x < n)).sum())
+
+    return (inb(v[:k_l], n1), inb(v[2 * k_l : 2 * k_l + k_h], s1),
+            inb(v[2 * k_l + 2 * k_h :], n1))
+
+
+def broadcast_rows(bfig: dict, b_launches: dict) -> list[dict]:
+    """K7a and K7b against their plain versions at the broadcast path's
+    4096-doc fan-out, each timed beside K1 or K6 on its inputs replicated
+    per doc (``replicated_ms``, ``replicated_device_ms``)."""
+    from yjs_tpu_torch.ops import kernels as K
+
+    rows = []
+    tables, lanes, k_l, k_h, k_d = bfig["apply_plan_shared"]
+    b, n1 = tables[0].shape
+    s1 = tables[2].shape[1]
+    got = K.apply_plan_shared(_clone(tables), lanes, k_l, k_h, k_d)
+    ref = K.apply_plan_shared_plain(_clone(tables), lanes, k_l, k_h, k_d)
+    err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+    base = _clone(tables)
+    ms = cuda_ms(lambda: K.apply_plan_shared(base, lanes, k_l, k_h, k_d))
+    dev_ms = device_ms(lambda: K.apply_plan_shared(base, lanes, k_l, k_h, k_d))
+    plain_ms = cuda_ms(
+        lambda: K.apply_plan_shared_plain(base, lanes, k_l, k_h, k_d), 5)
+    w_l, w_h, w_d = shared_lane_writes(lanes, k_l, k_h, n1, s1)
+    # K1 on the same delta replicated per doc, the unshared yardstick
+    rtables, rlanes, *rwidths = bfig["apply_lanes_replicated"]
+    rbase = _clone(rtables)
+    rep_ms = cuda_ms(lambda: K.apply_lanes(rbase, rlanes, *rwidths))
+    rep_dev = device_ms(lambda: K.apply_lanes(rbase, rlanes, *rwidths))
+    rows.append({
+        "name": "apply_plan_shared", "route": "cuda",
+        "source": "yjs_tpu_torch/csrc/apply_lanes.cu",
+        "replaces": "yjs_tpu/ops/kernels.py:449",
+        "shape": f"B={b} N+1={n1} S+1={s1} lanes={lanes.numel()} shared",
+        "path": "broadcast", "launches": b_launches["apply_plan_shared"],
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": (lanes.nbytes + b * (4 * w_l + 4 * w_h + w_d))
+        / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+        "replicated_ms": rep_ms, "replicated_device_ms": rep_dev,
+    })
+
+    statics, dyn, splits, lv, dels, scratch = bfig["batch_step_levels_shared"]
+    b, n1 = dyn[0].shape
+    got = K.batch_step_levels_shared(statics, _clone(dyn), splits, lv, dels,
+                                     scratch)
+    stats = K.new_yata_stats(b, dyn[0].device)
+    ref = _clone(dyn)
+    plain_ms = once_ms(lambda: K.batch_step_levels_shared_plain(
+        statics, ref, splits, lv, dels, scratch, stats=stats))
+    err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+    work = _clone(dyn)
+
+    def restore():
+        for w, o in zip(work, dyn):
+            w.copy_(o)
+
+    def launch():
+        K.batch_step_levels_shared(statics, work, splits, lv, dels, scratch)
+
+    ms = cuda_ms_restored(launch, restore)
+    dev_ms = device_ms(launch, YATA_TIMED_LAUNCHES, restore)
+    # K6 on the same plan replicated per doc, the unshared yardstick
+    rstatics, rdyn, *rrest = bfig["batch_step_levels_replicated"]
+    rwork = _clone(rdyn)
+
+    def rrestore():
+        for w, o in zip(rwork, rdyn):
+            w.copy_(o)
+
+    def rlaunch():
+        K.batch_step_levels(rstatics, rwork, *rrest)
+
+    rep_ms = cuda_ms_restored(rlaunch, rrestore)
+    rep_dev = device_ms(rlaunch, YATA_TIMED_LAUNCHES, rrestore)
+    # the shared inputs once; per doc each real lane's gap read (4 B) and
+    # every lane slot's two link writes (8 B), each split (14 B) and
+    # delete (1 B); per integrated item, scanned item and scan step what
+    # yata_bytes charges
+    real = int((lv[..., 0] >= 0).sum())
+    n_splits = int((splits[:, 0] >= 0).sum())
+    n_dels = int(((dels >= 0) & (dels < n1)).sum())
+    nbytes = (sum(v.nbytes for v in statics.values()) + splits.nbytes
+              + lv.nbytes + dels.nbytes + scratch.nbytes
+              + b * (4 * real + 8 * lv[..., 0].numel() + 14 * n_splits + n_dels)
+              + 12 * int(stats["deferred"].sum())
+              + 24 * int(stats["scanned"].sum())
+              + 36 * int(stats["scan_steps"].sum()))
+    chain = int(stats["chain"].max())
+    rows.append({
+        "name": "batch_step_levels_shared", "route": "cuda",
+        "source": "yjs_tpu_torch/csrc/yata.cu",
+        "replaces": "yjs_tpu/ops/kernels.py:350",
+        "shape": f"B={b} N+1={n1} S+1={dyn[2].shape[1]} "
+                 f"schedule={tuple(lv.shape)} shared",
+        "path": "broadcast",
+        "launches": b_launches["batch_step_levels_shared"],
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "limited_by": "dep_chain", "dep_chain": chain,
+        "ns_per_dep_load": (dev_ms or ms) * 1e6 / max(1, chain),
+        "scan_steps": int(stats["scan_steps"].sum()),
+        "scanned": int(stats["scanned"].sum()),
+        "deferred": int(stats["deferred"].sum()),
+        "replicated_ms": rep_ms, "replicated_device_ms": rep_dev,
+    })
+    return rows
+
+
 def kernel_phase(seen: dict, launches: dict, pseen: dict,
-                 plaunches: dict, yseen: dict, ylaunches: dict) -> list[dict]:
+                 plaunches: dict, yseen: dict, ylaunches: dict,
+                 plseen: dict, pl_launches: dict, bfig: dict,
+                 b_launches: dict) -> list[dict]:
     """Each kernel against its plain version on the largest input its
     path gave it (tables as they were before that call); ``launches`` and
     ``plaunches`` are the main and the provider path's counts."""
@@ -1239,6 +1903,8 @@ def kernel_phase(seen: dict, launches: dict, pseen: dict,
         "library_ms": None,
     })
     rows.extend(yata_rows(yseen, ylaunches))
+    rows.extend(planner_rows(plseen, pl_launches))
+    rows.extend(broadcast_rows(bfig, b_launches))
     torch.cuda.synchronize()
     # comparison and timing launches are not the main path's
     K.launches.update(saved)
@@ -1332,9 +1998,40 @@ def main() -> int:
     log(f"[yata] CPU twin (plain kernels) flush 1 {yfig['twin1']:.3f}s, "
         f"flush 2 {yfig['twin2']:.3f}s; statics {yfig['statics_bytes']} "
         f"bytes; flush 2 compacted {yfig['n_compacted']} docs")
+
+    # the Python mirror's device cold planner
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with Capture(K, PLANNER_KERNELS) as plcap:
+        pfig = planner_path(traces, figures["trimmed"], dev["smi"])
+    torch.cuda.synchronize()
+    pl_launches = dict(K.launches)
+    log(f"[planner] wall {time.perf_counter() - t0:.1f}s; launches {pl_launches}")
+    log(f"[planner] {pfig['n_docs']} docs, one per distinct fixture trace (a "
+        f"{N_DOCS}-doc fleet of these traces plans the same chunk; its other "
+        f"{N_DOCS - pfig['n_docs']} docs would replay the plan cache and "
+        "launch nothing); bursts of "
+        f"{pfig['burst_updates']} updates generated in {pfig['t_bursts']:.1f}s "
+        f"(set-up); CPU twin flushes, planned cold on the plain kernels, "
+        f"{pfig['twin1']:.3f} / {pfig['twin2']:.3f} / {pfig['twin3']:.3f}s")
+    check(pl_launches["conflict_scan_chunk"] >= 2,
+          "the chunk conflict scan launched fewer than twice")
+    check(pl_launches["anchor_lookup"] >= 1, "the anchor lookup never launched")
+    check(pl_launches["conflict_scan"] >= 1,
+          "the per-doc conflict scan never launched")
     del figures["trimmed"]
+
+    # broadcast replay: one trace over 4096 docs
+    K.reset_launches()
+    t0 = time.perf_counter()
+    bfig = broadcast_path(traces[0])
+    torch.cuda.synchronize()
+    b_launches = dict(K.launches)
+    log(f"[broadcast] wall {time.perf_counter() - t0:.1f}s; launches {b_launches}")
+    for name, _size in BROADCAST_KERNELS:
+        check(b_launches[name] == 1, f"{name} did not launch once")
     rows = kernel_phase(cap.seen, launches, pcap.seen, plaunches, ycap.seen,
-                        ylaunches)
+                        ylaunches, plcap.seen, pl_launches, bfig, b_launches)
     log(json.dumps({"kernels": rows}))
     log(dev["smi"])
     print(json.dumps({"ok": True, "device": {

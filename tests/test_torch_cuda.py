@@ -441,8 +441,8 @@ def yata_case(seed: int, b: int, n_stages: int = 3, n_ops: int = 60,
     stage's plan, ``splits [b, S, 2]``, ``sched [b, M, 4]``, ``lv [b, L,
     W, 8]`` (W at least ``w_pad``), ``dels [b, D]``, ``scratch [b]``;
     ``uniform`` pads every stage to the same widths (one compiled shape
-    for the JAX kernels).  The Python mirror plans on the NumPy segment planner (its device mode
-    is not ported)."""
+    for the JAX kernels).  The Python mirror plans on the NumPy segment
+    planner, so the case needs no device."""
     import os
 
     from yjs_tpu_torch.ops.columns import DocMirror
@@ -717,6 +717,348 @@ def test_yata_engine_on_card_matches_cpu_twin(cuda_device, hang_guard, lane,
             for key in kernels.STATIC_KEYS:
                 assert torch.equal(eng._statics[key].cpu(), twin._statics[key])
     eng.flush()
+    for i, ups in enumerate(per_doc):
+        doc = Y.Doc(gc=False)
+        for u in ups:
+            Y.apply_update(doc, u)
+        assert eng.text(i) == doc.get_text("text").to_string()
+
+
+# -- K7, K11, K12: the broadcast kernels and the segment planner's --------------
+
+INT64_MAX = np.iinfo(np.int64).max
+
+
+def planner_corpus(shape: str, seed: int, n_ops: int = 90) -> list[bytes]:
+    """Seeded incremental updates from concurrent editors, one list per
+    (shape, seed): ``prepend_storm``, ``interleaved``, ``storm`` (four
+    clients typing near the start) or ``b4_head`` (single-char typing and
+    backspace runs at a mostly sequential cursor, periodic syncs).  The
+    corpus generator of the JAX package's segment-planner tests, written
+    against this package's core (the bytes are the same)."""
+    gen = random.Random(seed)
+    n_clients = 4 if shape == "storm" else 2 if shape == "b4_head" else 3
+    docs = []
+    for k in range(n_clients):
+        d = Y.Doc(gc=False)
+        d.client_id = 300 + k
+        docs.append(d)
+    out: list[bytes] = []
+    cursors = {id(d): 0 for d in docs}
+    j = 0
+    while len(out) < n_ops:
+        if shape == "b4_head" and gen.random() < 0.1:
+            j = gen.randrange(n_clients)
+        elif shape != "b4_head":
+            j = gen.randrange(n_clients)
+        d = docs[j]
+        t = d.get_text("text")
+        sv = Y.encode_state_vector(d)
+        if shape == "prepend_storm":
+            t.insert(0, gen.choice("abcdef") * gen.randint(1, 2))
+        elif shape == "storm":
+            t.insert(min(len(t), gen.randrange(3)), gen.choice("xyz "))
+        elif shape == "b4_head":
+            cur = min(cursors[id(d)], len(t))
+            if gen.random() < 0.05:
+                cur = gen.randint(0, len(t))
+            if len(t) and cur and gen.random() < 0.3:
+                t.delete(cur - 1, 1)  # backspace
+                cur -= 1
+            else:
+                t.insert(cur, gen.choice("etaoin shr"))
+                cur += 1
+            cursors[id(d)] = cur
+        elif len(t) and gen.random() < 0.25:
+            t.delete(gen.randrange(len(t)), 1)
+        else:
+            t.insert(gen.randrange(len(t) + 1), gen.choice("abcdef "))
+        out.append(Y.encode_state_as_update(d, sv))
+        sync_p = 0.05 if shape == "storm" else 0.3
+        if gen.random() < sync_p:
+            k = gen.randrange(n_clients)
+            if k != j:
+                Y.apply_update(docs[k], Y.encode_state_as_update(d))
+    return out
+
+
+PLANNER_SHAPES = ("prepend_storm", "interleaved", "storm", "b4_head")
+
+
+def scan_case(seed: int, n: int, n_docs: int = 0, pad: int = 0,
+              wide: bool = False):
+    """One seeded K12 case: ``(cols, doc_id)`` with the seven int64
+    columns (client, clock, length, o_cl, o_ck, r_cl, r_ck) of ``n`` real
+    refs plus ``pad`` padding lanes as the planner pads them (client -1,
+    doc -1, clocks and lengths 0), and a sorted doc-id column over
+    ``n_docs`` docs (None when 0).  Origins often fall inside, at the
+    edges of, or just past the previous ref's id range; ``wide`` moves
+    clocks and client ids past 2**31 (true int64)."""
+    g = np.random.default_rng(seed)
+    client = g.integers(0, 4, n)
+    length = g.integers(1, 5, n)
+    clock = np.cumsum(length + g.integers(0, 2, n)) - length
+    prev_cl, prev_ck = np.roll(client, 1), np.roll(clock, 1)
+    prev_len = np.roll(length, 1)
+
+    def anchor(p_same):
+        same = g.random(n) < p_same
+        cl = np.where(same, prev_cl, g.integers(-1, 4, n))
+        ck = prev_ck + (g.random(n) * (prev_len + 2)).astype(np.int64) - 1
+        return cl, ck
+
+    o_cl, o_ck = anchor(0.7)
+    r_cl, r_ck = anchor(0.4)
+    if wide:
+        big = 2**33
+        client, o_cl, r_cl = (np.where(c >= 0, c + big, c)
+                              for c in (client, o_cl, r_cl))
+        clock, o_ck, r_ck = clock + big, o_ck + big, r_ck + big
+    cols = [np.asarray(c, np.int64) for c in
+            (client, clock, length, o_cl, o_ck, r_cl, r_ck)]
+    fills = (-1, 0, 0, -1, 0, -1, 0)
+    cols = [np.concatenate([c, np.full(pad, f, np.int64)])
+            for c, f in zip(cols, fills)]
+    doc_id = None
+    if n_docs:
+        doc_id = np.concatenate([np.sort(g.integers(0, n_docs, n)),
+                                 np.full(pad, -1)]).astype(np.int64)
+    return cols, doc_id
+
+
+def lookup_case(seed: int, n_hay: int, n_q: int, wide: bool = False,
+                pad: bool = True):
+    """One seeded K11 case: ``(flat_key, q_key)`` int64.  The haystack
+    is sorted and distinct, padded to a power of two with int64.max when
+    ``pad``; the queries mix exact keys, keys one off, keys below and
+    above every real key and -1 (absent anchors), -1 padded when ``pad``.
+    ``wide`` puts every real key past 2**31."""
+    g = np.random.default_rng(seed)
+    keys = np.sort(g.choice(10 * n_hay + 10, n_hay, replace=False))
+    keys = keys.astype(np.int64)
+    if wide:
+        keys = keys * 2**20 + 2**33
+    pick = keys[g.integers(0, max(1, n_hay), n_q)] if n_hay else np.zeros(
+        n_q, np.int64)
+    q = pick + g.integers(-1, 2, n_q)
+    kind = g.random(n_q)
+    q = np.where(kind < 0.1, -1, q)
+    q = np.where((kind >= 0.1) & (kind < 0.15), 2**62, q)
+    q = q.astype(np.int64)
+    if pad:
+        keys = np.concatenate(
+            [keys, np.full(_bucket(max(1, n_hay), 64) - n_hay, INT64_MAX)])
+        q = np.concatenate([q, np.full(_bucket(n_q, 64) - n_q, -1)])
+    return keys.astype(np.int64), q.astype(np.int64)
+
+
+def shared_case(seed: int, n_docs: int, n_ops: int = 60):
+    """One seeded broadcast (B4-shape) case: a seeded session planned
+    once by a Python mirror with the levels plan (its segment planner on
+    the CPU), packed as one shared delta and one shared levels plan:
+    ``statics`` (six ``[cap+1]`` int32 columns, ``client_key`` as its bit
+    pattern), ``splits [S, 2]``, ``lv [L, W, 8]``, ``dels [D]``, the K7a
+    ``lanes`` with ``k_l``, ``k_h``, ``k_d``, fresh ``tables`` for
+    ``n_docs`` docs, ``scratch [n_docs]``, and ``n``, ``n_segs``."""
+    from yjs_tpu_torch.ops.columns import DocMirror
+
+    mirror = DocMirror("text", device="cpu")
+    for u in yata_session(seed, n_ops):
+        mirror.ingest(u)
+    plan = mirror.prepare_step(want_levels=True)
+    n = mirror.n_rows
+    w_pad = max(plan.max_width, 1)
+    cap = max(64, n + 2 * w_pad)
+    s1 = max(8, mirror.n_segs) + 1
+    cols = mirror.static_columns()
+    statics = {}
+    for key, fill in YATA_FILLS:
+        col = np.full(cap + 1, fill, np.int64)
+        col[:n] = cols[key]
+        statics[key] = (col.astype(np.uint32).view(np.int32)
+                        if key == "client_key" else col.astype(np.int32))
+    packed = plan.packed_levels()
+    lv = np.full((max(1, len(packed)), w_pad, 8), NULL, np.int32)
+    for j, entries in enumerate(packed):
+        if entries:
+            lv[j, : len(entries)] = entries
+    splits = np.full((max(1, len(plan.splits)), 2), NULL, np.int32)
+    if plan.splits:
+        splits[: len(plan.splits)] = np.asarray(plan.splits, np.int32)
+    dels = np.full(max(1, len(plan.delete_rows)), NULL, np.int32)
+    if plan.delete_rows:
+        dels[: len(plan.delete_rows)] = np.asarray(plan.delete_rows, np.int32)
+
+    def pad_lanes(idx, vals, minimum, oob):
+        i = np.full(_bucket(max(1, len(idx)), minimum), oob, np.int32)
+        i[: len(idx)] = np.asarray(idx, np.int32)
+        if vals is None:
+            return i, None
+        v = np.full(len(i), NULL, np.int32)
+        v[: len(idx)] = np.asarray(vals, np.int32)
+        return i, v
+
+    rows, vals = pad_lanes(plan.link_rows, plan.link_vals, 64, cap + 1)
+    segs, hvals = pad_lanes(plan.head_segs, plan.head_vals, 8, s1)
+    dl, _ = pad_lanes(plan.delete_rows, None, 64, cap + 1)
+    return {
+        "statics": statics, "splits": splits, "lv": lv, "dels": dels,
+        "lanes": np.concatenate([rows, vals, segs, hvals, dl]),
+        "k_l": len(rows), "k_h": len(segs), "k_d": len(dl),
+        "tables": yata_tables(n_docs, cap, s1),
+        "scratch": np.full(n_docs, n, np.int32),
+        "n": n, "n_segs": mirror.n_segs,
+    }
+
+
+def replicated(case):
+    """K1's lanes buffer and K6's per-doc inputs carrying ``case``'s
+    shared delta and levels plan once per doc."""
+    b = case["tables"][0].shape[0]
+    lanes, k_l, k_h = case["lanes"], case["k_l"], case["k_h"]
+    rows, vals = lanes[:k_l], lanes[k_l : 2 * k_l]
+    segs = lanes[2 * k_l : 2 * k_l + k_h]
+    hvals = lanes[2 * k_l + k_h : 2 * k_l + 2 * k_h]
+    dels = lanes[2 * k_l + 2 * k_h :]
+    counts = np.concatenate([np.zeros(b), np.full(b, k_l), np.full(b, k_h),
+                             np.full(b, len(dels))]).astype(np.int32)
+    k1 = np.concatenate([counts, np.tile(rows, b), np.tile(vals, b),
+                         np.tile(segs, b), np.tile(hvals, b),
+                         np.tile(dels, b)]).astype(np.int32)
+    widths = (0, b * k_l, b * k_h, b * len(dels))
+    k6 = {key: np.array(np.broadcast_to(v, (b, *v.shape)))
+          for key, v in case["statics"].items()}
+    for key in ("splits", "lv", "dels"):
+        k6[key] = np.array(
+            np.broadcast_to(case[key], (b, *case[key].shape)))
+    return k1, widths, k6
+
+
+def trimmed(dyn, n: int, n_segs: int):
+    right, deleted, starts = (np.asarray(t.cpu()) for t in dyn)
+    return right[:, :n], deleted[:, :n], starts[:, :n_segs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("shape", [(1, 0, 0), (5, 0, 59), (1023, 0, 1),
+                                   (3000, 7, 1096), (600_000, 1024, 448_576),
+                                   (3_000_000, 4096, 145_728)])
+def test_conflict_scan_kernel_matches_plain(cuda_device, shape, wide):
+    """K12, per-doc and chunk, against its plain version; the two largest
+    cases have 2**20 and 3 * 2**20 lanes (1024 and 3072 tiles: the
+    offsets pass then carries its running total over three rounds)."""
+    n, n_docs, pad = shape
+    cols, doc_id = scan_case(n + n_docs, n, max(1, n_docs), pad, wide)
+    ts = _torch(cols, cuda_device)
+    doc = torch.from_numpy(doc_id).to(cuda_device)
+    for d, key in ((None, "conflict_scan"), (doc, "conflict_scan_chunk")):
+        ref = kernels.conflict_scan_plain(*ts, d)
+        before = kernels.launches[key]
+        got = kernels.conflict_scan(*ts, d)
+        torch.cuda.synchronize()
+        assert kernels.launches[key] == before + 1
+        for r, g in zip(ref, got):
+            assert r.dtype == g.dtype and torch.equal(r, g), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("sizes", [(0, 5), (1, 64), (37, 300),
+                                   (70_000, 500_000)])
+def test_anchor_lookup_kernel_matches_plain(cuda_device, sizes, wide):
+    """K11 against its plain version: keys past 2**31, int64.max padding
+    sorting last, -1 queries, an empty haystack."""
+    flat, q = lookup_case(sizes[0] + 7, *sizes, wide=wide)
+    flat_t, q_t = _torch((flat, q), cuda_device)
+    before = kernels.launches["anchor_lookup"]
+    got = kernels.anchor_lookup(flat_t, q_t)
+    torch.cuda.synchronize()
+    assert kernels.launches["anchor_lookup"] == before + 1
+    assert torch.equal(got.cpu(), kernels.anchor_lookup_plain(
+        torch.from_numpy(flat), torch.from_numpy(q)))
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), np.searchsorted(flat, q, side="right") - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_docs", [1, 5, 4096])
+def test_broadcast_kernels_match_plain_and_replicated(cuda_device, n_docs):
+    """K7a and K7b against their plain versions, against K1 and K6 fed
+    the same delta and plan replicated per doc (K6 still launches once),
+    and against each other on the live rows."""
+    case = shared_case(3, n_docs)
+    tables = case["tables"]
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    lanes = to(case["lanes"])
+    widths = (case["k_l"], case["k_h"], case["k_d"])
+    statics = {k: to(v) for k, v in case["statics"].items()}
+    shared = (to(case["splits"]), to(case["lv"]), to(case["dels"]),
+              to(case["scratch"]))
+    k1, k1_widths, k6 = replicated(case)
+
+    ref = kernels.apply_plan_shared_plain(_torch(tables, cuda_device), lanes,
+                                          *widths)
+    before = kernels.launches["apply_plan_shared"]
+    got_a = kernels.apply_plan_shared(_torch(tables, cuda_device), lanes,
+                                      *widths)
+    torch.cuda.synchronize()
+    assert kernels.launches["apply_plan_shared"] == before + 1
+    rep = kernels.apply_lanes(_torch(tables, cuda_device), to(k1), *k1_widths)
+    for r, g, x in zip(ref, got_a, rep):
+        assert torch.equal(r, g) and torch.equal(x, g)
+
+    ref = kernels.batch_step_levels_shared_plain(
+        statics, _torch(tables, cuda_device), *shared)
+    before = dict(kernels.launches)
+    got_b = kernels.batch_step_levels_shared(
+        statics, _torch(tables, cuda_device), *shared)
+    rep = kernels.batch_step_levels(
+        {k: to(k6[k]) for k in kernels.STATIC_KEYS},
+        _torch(tables, cuda_device), to(k6["splits"]), to(k6["lv"]),
+        to(k6["dels"]), shared[3])
+    torch.cuda.synchronize()
+    assert kernels.launches["batch_step_levels_shared"] == (
+        before["batch_step_levels_shared"] + 1)
+    assert kernels.launches["batch_step_levels"] == (
+        before["batch_step_levels"] + 1)
+    for r, g, x in zip(ref, got_b, rep):
+        assert torch.equal(r, g) and torch.equal(x, g)
+    for a, b in zip(trimmed(got_a, case["n"], case["n_segs"]),
+                    trimmed(got_b, case["n"], case["n_segs"])):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["interleaved", "storm"])
+def test_planner_engine_on_card_matches_cpu_twin(cuda_device, shape,
+                                                 monkeypatch):
+    """The Python mirror's default (device) planner mode on the card: the
+    chunk planner launches K12 (and K11 once anchors stay open), the
+    tables equal the CPU twin's after every flush, nothing is demoted."""
+    monkeypatch.setenv("YTPU_NO_NATIVE_PLAN", "1")
+    monkeypatch.delenv("YTPU_PLAN_SEGMENT", raising=False)
+    monkeypatch.setenv("YTPU_PLAN_CACHE", "0")
+    per_doc = [planner_corpus(shape, seed=70 + i, n_ops=60) for i in range(4)]
+    eng = BatchEngine(4, device=cuda_device)
+    twin = BatchEngine(4, device="cpu")
+    before = dict(kernels.launches)
+    for j in range(60):
+        for e in (eng, twin):
+            for i, ups in enumerate(per_doc):
+                e.queue_update(i, ups[j])
+        if j % 20 == 19:
+            eng.flush()
+            twin.flush()
+            torch.cuda.synchronize()
+            assert eng.last_flush_metrics["n_demoted"] == 0
+            assert eng.last_flush_metrics["plan_threads"] == 4
+            for a, b in zip((eng._right, eng._deleted, eng._starts),
+                            (twin._right, twin._deleted, twin._starts)):
+                assert torch.equal(a.cpu(), b)
+    assert kernels.launches["conflict_scan_chunk"] >= before[
+        "conflict_scan_chunk"] + 3
+    assert kernels.launches["anchor_lookup"] > before["anchor_lookup"]
     for i, ups in enumerate(per_doc):
         doc = Y.Doc(gc=False)
         for u in ups:

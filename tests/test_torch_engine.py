@@ -219,13 +219,15 @@ def test_python_mirror_matches_jax(monkeypatch):
 
 
 def test_python_mirror_device_segment_mode_raises(monkeypatch):
+    """The Python mirror's device segment mode (the whole-chunk planner,
+    here on the kernels' plain versions) no longer raises: it matches
+    the JAX engine in the same mode."""
     monkeypatch.setenv("YTPU_NO_NATIVE_PLAN", "1")
     monkeypatch.setenv("YTPU_PLAN_SEGMENT", "device")
-    eng = TorchEngine(1, device="cpu")
-    for u in make_trace("prepend", seed=1, n_ops=8):
-        eng.queue_update(0, u)
-    with pytest.raises(NotImplementedError, match="K11-K13"):
-        eng.flush()
+    per_doc = [make_trace(s, seed=60 + i) for i, s in enumerate(SHAPES)]
+    want, got, eng = run_pair(per_doc, monkeypatch)
+    assert type(eng.mirrors[0]).__name__ == "DocMirror"
+    assert_same(want, got)
 
 
 def test_unported_paths_raise(monkeypatch):

@@ -118,7 +118,7 @@ def test_list_ranks_orders_a_known_list():
     assert d.tolist() == [[2, 0, 3, 1, -1]]
 
 
-# -- K11/K12: the NumPy segment-planner kernels -----------------------------------
+# -- K11/K12: the segment-planner kernels' NumPy and kernel backends ---------------
 
 
 def _planner_case(seed: int, n: int = 40):
@@ -158,11 +158,17 @@ def test_anchor_lookup_matches_numpy_reference(seed):
 
 
 def test_device_planner_backends_raise():
+    """The kernel backends no longer raise: on the CPU (the plain
+    versions) they give the NumPy backend's answers."""
     case = _planner_case(0, 8)
-    with pytest.raises(NotImplementedError, match="K11-K13"):
-        tk.plan_conflict_scan(*case, backend="jax")
-    with pytest.raises(NotImplementedError, match="K11-K13"):
-        tk.plan_anchor_lookup(case[0], case[1], case[0], case[1], backend="jax")
+    for w, g in zip(tk.plan_conflict_scan(*case),
+                    tk.plan_conflict_scan(*case, backend="jax", device="cpu")):
+        np.testing.assert_array_equal(w, g)
+    np.testing.assert_array_equal(
+        tk.plan_anchor_lookup(case[0], case[1], case[0], case[1]),
+        tk.plan_anchor_lookup(case[0], case[1], case[0], case[1],
+                              backend="jax", device="cpu"),
+    )
 
 
 def _queries(mod, seed: int, n: int = 24):
@@ -209,7 +215,23 @@ def test_plan_doc_and_chunk_match_jax_np_mode(seed):
 
 @pytest.mark.parametrize("mode", ["device", "jax"])
 def test_device_segment_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="YTPU_PLAN_SEGMENT"):
-        tsp.plan_doc(_queries(tsp, 0), mode=mode)
-    with pytest.raises(NotImplementedError, match="YTPU_PLAN_SEGMENT"):
-        tsp.plan_chunk([(_queries(tsp, 0), None)], mode=mode)
+    """The device and jax modes no longer raise: on the CPU (the kernels'
+    plain versions) they plan as the np mode does, per doc and per
+    chunk."""
+    for snap in (None, _snapshot):
+        want = tsp.plan_doc(_queries(tsp, 0), mode="np", snapshot=snap)
+        got = tsp.plan_doc(_queries(tsp, 0), mode=mode, snapshot=snap,
+                           device="cpu")
+        for name in ("chain_l", "chain_r", "run_id", "hint_l", "hint_r"):
+            w, g = getattr(want, name), getattr(got, name)
+            assert (w is None) == (g is None)
+            if w is not None:
+                np.testing.assert_array_equal(w, g)
+        assert want.spans == got.spans
+    items = [(_queries(tsp, k), _snapshot) for k in range(3)]
+    for w, g in zip(tsp.plan_chunk(items, mode="np"),
+                    tsp.plan_chunk(items, mode=mode, device="cpu")):
+        np.testing.assert_array_equal(w.hint_l, g.hint_l)
+        np.testing.assert_array_equal(w.hint_r, g.hint_r)
+        np.testing.assert_array_equal(w.chain_l, g.chain_l)
+        assert w.spans == g.spans

@@ -141,7 +141,54 @@ int apply_lanes(const T* lanes, int32_t* cum, int32_t* right,
   return (int)cudaGetLastError();
 }
 
+constexpr int kSharedThreads = 256;
+constexpr int64_t kSharedMaxBlocks = 1 << 20;
+
+__global__ void apply_shared(const int32_t* __restrict__ lanes,
+                             int32_t* __restrict__ right,
+                             uint8_t* __restrict__ deleted,
+                             int32_t* __restrict__ starts, int b, int n1,
+                             int s1, int k_l, int k_h, int k_d) {
+  const int64_t k = (int64_t)k_l + k_h + k_d;
+  const int64_t total = (int64_t)b * k;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
+       t += stride) {
+    const int64_t d = t / k;
+    const int64_t j = t - d * k;
+    if (j < k_l) {
+      const int64_t r = norm_index(lanes[j], n1);
+      if (r >= 0) right[d * n1 + r] = lanes[k_l + j];
+    } else if (j < (int64_t)k_l + k_h) {
+      const int64_t h = j - k_l;
+      const int64_t s = norm_index(lanes[2 * (int64_t)k_l + h], s1);
+      if (s >= 0) starts[d * s1 + s] = lanes[2 * (int64_t)k_l + k_h + h];
+    } else {
+      const int64_t e = j - k_l - k_h;
+      const int64_t r =
+          norm_index(lanes[2 * (int64_t)k_l + 2 * (int64_t)k_h + e], n1);
+      if (r >= 0) deleted[d * n1 + r] = 1;
+    }
+  }
+}
+
 }  // namespace
+
+extern "C" int ytpu_apply_plan_shared(const void* lanes, void* right,
+                                      void* deleted, void* starts, int b,
+                                      int n1, int s1, int k_l, int k_h,
+                                      int k_d, void* stream) {
+  const int64_t total = (int64_t)b * ((int64_t)k_l + k_h + k_d);
+  if (total <= 0) return (int)cudaSuccess;
+  int64_t blocks = (total + kSharedThreads - 1) / kSharedThreads;
+  if (blocks > kSharedMaxBlocks) blocks = kSharedMaxBlocks;
+  apply_shared<<<(unsigned)blocks, kSharedThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(lanes), static_cast<int32_t*>(right),
+      static_cast<uint8_t*>(deleted), static_cast<int32_t*>(starts), b, n1,
+      s1, k_l, k_h, k_d);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int ytpu_apply_lanes_i32(const void* lanes, void* cum, void* right,
                                     void* deleted, void* starts, int b,

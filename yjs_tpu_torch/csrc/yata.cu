@@ -39,6 +39,13 @@
 //   barrier; (c) thread 0 runs the deferred lanes through K4 in ascending
 //   lane order; barrier.  All reads of (a) precede every write of (b): the
 //   functional semantics of the reference's scatter.
+// - K7b batch_step_levels_shared (yjs_tpu/ops/kernels.py:350, the vmap of
+//   _doc_step_levels with in_axes=None for everything but the tables and
+//   scratch_base: the B4 replay shape) is K6 instantiated with a doc stride
+//   of 0 for the static columns, splits, level schedule and deletes, so all
+//   docs read one shared copy (L2-resident); the tables, visit scratch,
+//   fast flags and scratch_base keep the doc axis.  K6's instantiation
+//   computes the same addresses as before the template.
 // Indices follow XLA's rules: a gather wraps a negative index and clamps,
 // a scatter wraps a negative index and drops what is still out of range.
 // Client keys hold u32 bit patterns and compare unsigned (YATA case 1).
@@ -70,18 +77,20 @@ struct Doc {
   int s1;
 };
 
+// sdoc: the statics row to read (doc, or 0 when one row is shared).
 __device__ __forceinline__ Doc doc_view(const Statics& s, int32_t* rl,
                                         uint8_t* dl, int32_t* starts,
-                                        int32_t* visit, int64_t doc, int n1,
-                                        int s1) {
+                                        int32_t* visit, int64_t doc,
+                                        int64_t sdoc, int n1, int s1) {
   const int64_t o = doc * n1;
+  const int64_t so = sdoc * n1;
   Doc d;
-  d.s.key = s.key + o;
-  d.s.oslot = s.oslot + o;
-  d.s.oclock = s.oclock + o;
-  d.s.rslot = s.rslot + o;
-  d.s.rclock = s.rclock + o;
-  d.s.orow = s.orow + o;
+  d.s.key = s.key + so;
+  d.s.oslot = s.oslot + so;
+  d.s.oclock = s.oclock + so;
+  d.s.rslot = s.rslot + so;
+  d.s.rclock = s.rclock + so;
+  d.s.orow = s.orow + so;
   d.rl = rl + o;
   d.dl = dl + o;
   d.starts = starts + doc * s1;
@@ -206,7 +215,7 @@ __global__ void batch_step_kernel(Statics s, int32_t* rl, uint8_t* dl,
                                   int n_del, int32_t epoch_max) {
   const int64_t doc = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (doc >= b) return;
-  const Doc d = doc_view(s, rl, dl, starts, visit, doc, n1, s1);
+  const Doc d = doc_view(s, rl, dl, starts, visit, doc, doc, n1, s1);
   split_prepass(d, splits + doc * n_splits * 2, n_splits);
   int32_t counter = 0;
   const int32_t* e = sched + doc * m * 4;
@@ -217,6 +226,8 @@ __global__ void batch_step_kernel(Statics s, int32_t* rl, uint8_t* dl,
   for (int j = 0; j < n_del; ++j) delete_row(d, dr[j]);
 }
 
+// kShared: statics, splits, lv and dels hold one doc's worth, read by all.
+template <bool kShared>
 __global__ void batch_step_levels_kernel(
     Statics s, int32_t* rl, uint8_t* dl, int32_t* starts, int32_t* visit,
     uint8_t* fast, const int32_t* __restrict__ splits,
@@ -224,16 +235,17 @@ __global__ void batch_step_levels_kernel(
     const int32_t* __restrict__ scratch_base, int n1, int s1, int n_splits,
     int n_lv, int w, int n_del, int fast_w, int32_t epoch_max) {
   const int64_t doc = blockIdx.x;
+  const int64_t sdoc = kShared ? 0 : doc;  // the shared inputs' doc index
   const int tid = threadIdx.x, nt = blockDim.x;
-  const Doc d = doc_view(s, rl, dl, starts, visit, doc, n1, s1);
+  const Doc d = doc_view(s, rl, dl, starts, visit, doc, sdoc, n1, s1);
   uint8_t* f = fast + doc * fast_w;
   const int64_t base = scratch_base[doc];
   const int32_t dummy = n1 - 1, s_dummy = s1 - 1;
-  if (tid == 0) split_prepass(d, splits + doc * n_splits * 2, n_splits);
+  if (tid == 0) split_prepass(d, splits + sdoc * n_splits * 2, n_splits);
   __syncthreads();
   int32_t counter = 0;  // thread 0's: only thread 0 integrates
   for (int lev = 0; lev < n_lv; ++lev) {
-    const int32_t* e = lv + (doc * n_lv + lev) * (int64_t)w * 8;
+    const int32_t* e = lv + (sdoc * n_lv + lev) * (int64_t)w * 8;
     // (a) gap check of every lane
     int pend = 0;
     for (int j = tid; j < w; j += nt) {
@@ -274,7 +286,7 @@ __global__ void batch_step_levels_kernel(
       __syncthreads();
     }
   }
-  const int32_t* dr = dels + doc * n_del;
+  const int32_t* dr = dels + sdoc * n_del;
   for (int j = tid; j < n_del; j += nt) delete_row(d, dr[j]);
 }
 
@@ -312,19 +324,22 @@ extern "C" int ytpu_batch_step(const void* key, const void* oslot,
   return (int)cudaGetLastError();
 }
 
-extern "C" int ytpu_batch_step_levels(
-    const void* key, const void* oslot, const void* oclock, const void* rslot,
-    const void* rclock, const void* orow, void* rl, void* dl, void* starts,
-    void* visit, void* fast, const void* splits, const void* lv,
-    const void* dels, const void* scratch_base, int b, int n1, int s1,
-    int n_splits, int n_lv, int w, int n_del, int fast_w, int epoch_max,
-    void* stream) {
+namespace {
+
+template <bool kShared>
+int launch_levels(const void* key, const void* oslot, const void* oclock,
+                  const void* rslot, const void* rclock, const void* orow,
+                  void* rl, void* dl, void* starts, void* visit, void* fast,
+                  const void* splits, const void* lv, const void* dels,
+                  const void* scratch_base, int b, int n1, int s1,
+                  int n_splits, int n_lv, int w, int n_del, int fast_w,
+                  int epoch_max, void* stream) {
   if (b <= 0) return (int)cudaSuccess;
   int threads = ((w + 31) / 32) * 32;
   if (threads < 32) threads = 32;
   if (threads > 256) threads = 256;
-  batch_step_levels_kernel<<<b, threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+  batch_step_levels_kernel<kShared><<<b, threads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
       make_statics(key, oslot, oclock, rslot, rclock, orow),
       static_cast<int32_t*>(rl), static_cast<uint8_t*>(dl),
       static_cast<int32_t*>(starts), static_cast<int32_t*>(visit),
@@ -333,4 +348,34 @@ extern "C" int ytpu_batch_step_levels(
       static_cast<const int32_t*>(scratch_base), n1, s1, n_splits, n_lv, w,
       n_del, fast_w, epoch_max);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ytpu_batch_step_levels(
+    const void* key, const void* oslot, const void* oclock, const void* rslot,
+    const void* rclock, const void* orow, void* rl, void* dl, void* starts,
+    void* visit, void* fast, const void* splits, const void* lv,
+    const void* dels, const void* scratch_base, int b, int n1, int s1,
+    int n_splits, int n_lv, int w, int n_del, int fast_w, int epoch_max,
+    void* stream) {
+  return launch_levels<false>(key, oslot, oclock, rslot, rclock, orow, rl, dl,
+                              starts, visit, fast, splits, lv, dels,
+                              scratch_base, b, n1, s1, n_splits, n_lv, w,
+                              n_del, fast_w, epoch_max, stream);
+}
+
+// The K7b entry: statics are [N+1] columns, splits [S, 2], lv [L, W, 8],
+// dels [D], all shared by the b docs.
+extern "C" int ytpu_batch_step_levels_shared(
+    const void* key, const void* oslot, const void* oclock, const void* rslot,
+    const void* rclock, const void* orow, void* rl, void* dl, void* starts,
+    void* visit, void* fast, const void* splits, const void* lv,
+    const void* dels, const void* scratch_base, int b, int n1, int s1,
+    int n_splits, int n_lv, int w, int n_del, int fast_w, int epoch_max,
+    void* stream) {
+  return launch_levels<true>(key, oslot, oclock, rslot, rclock, orow, rl, dl,
+                             starts, visit, fast, splits, lv, dels,
+                             scratch_base, b, n1, s1, n_splits, n_lv, w,
+                             n_del, fast_w, epoch_max, stream);
 }

@@ -4,10 +4,14 @@ Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers)
 and is compiled by its own ``nvcc`` process for ``sm_90a`` into
 ``yjs_tpu_torch/_build/`` at first use (see :mod:`..buildlib`); all
 sources compile in parallel.  The libraries are loaded with ``ctypes``:
-pointers and the stream pass as ``c_void_p``, sizes as ``c_int``.
+pointers and the stream pass as ``c_void_p``, sizes as ``c_int`` (the
+planner kernels' int64 lane counts as ``c_int64``).
 Kernels launch on PyTorch's current stream, neither allocate nor
 synchronise, and each C entry returns ``cudaGetLastError()``, which the
-binding here turns into a ``RuntimeError``.
+binding here turns into a :class:`KernelError`.  A source that does not
+build or load raises the same error: callers that contain faults of the
+data (the engine's per-doc isolation) let it through, so a dead kernel
+stops the flush instead of sending docs to the CPU.
 
 Nothing here runs at import time: importing the module needs neither
 ``nvcc`` nor a card.
@@ -19,6 +23,7 @@ import ctypes
 import os
 import re
 import shutil
+import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -31,7 +36,7 @@ CSRC = os.path.join(
 )
 SOURCES = (
     "apply_lanes", "scatter_rows", "list_ranks", "state_vector", "diff_mask",
-    "statics", "yata",
+    "statics", "yata", "conflict_scan", "anchor_lookup",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,6 +45,7 @@ NVCC_FLAGS = (
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
+_i64 = ctypes.c_int64
 # C entry points: name -> (library, argtypes)
 _ENTRIES = {
     "ytpu_apply_lanes_i32": ("apply_lanes", [_vp] * 5 + [_int] * 7 + [_vp]),
@@ -51,7 +57,18 @@ _ENTRIES = {
     "ytpu_scatter_statics": ("statics", [_vp] * 7 + [_int] * 3 + [_vp]),
     "ytpu_batch_step": ("yata", [_vp] * 13 + [_int] * 7 + [_vp]),
     "ytpu_batch_step_levels": ("yata", [_vp] * 15 + [_int] * 9 + [_vp]),
+    "ytpu_batch_step_levels_shared": (
+        "yata", [_vp] * 15 + [_int] * 9 + [_vp]
+    ),
+    "ytpu_apply_plan_shared": ("apply_lanes", [_vp] * 4 + [_int] * 6 + [_vp]),
+    "ytpu_conflict_scan": ("conflict_scan", [_vp] * 12 + [_i64, _vp]),
+    "ytpu_anchor_lookup": ("anchor_lookup", [_vp, _i64, _vp, _vp, _i64, _vp]),
 }
+
+class KernelError(RuntimeError):
+    """A CUDA kernel could not be built, loaded or launched, or a kernel
+    was asked for on a host without CUDA."""
+
 
 _fns: dict | None = None
 # per source: {"seconds": build wall time (0.0 when cached), "ptxas": the
@@ -62,7 +79,7 @@ build_info: dict = {}
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+        raise KernelError("nvcc not found: the CUDA kernels cannot be built")
     return path
 
 
@@ -88,11 +105,19 @@ def build_all() -> dict:
     if _fns is not None:
         return build_info
     nvcc = _nvcc()
-    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
-        paths = dict(
-            zip(SOURCES, pool.map(lambda n: _build_one(n, nvcc), SOURCES))
-        )
-    libs = {name: ctypes.CDLL(p) for name, p in paths.items()}
+    try:
+        with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+            paths = dict(
+                zip(SOURCES, pool.map(lambda n: _build_one(n, nvcc), SOURCES))
+            )
+        libs = {name: ctypes.CDLL(p) for name, p in paths.items()}
+    except (OSError, subprocess.SubprocessError) as e:
+        detail = getattr(e, "stderr", None) or b""
+        if isinstance(detail, bytes):
+            detail = detail.decode(errors="replace")
+        raise KernelError(
+            f"the CUDA kernels did not build or load: {e}\n{detail[-4000:]}"
+        ) from e
     fns = {}
     for entry, (lib, argtypes) in _ENTRIES.items():
         fn = getattr(libs[lib], entry)
@@ -131,7 +156,7 @@ def _call(entry: str, device: torch.device, *args) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _fns[entry](*args, _vp(stream))
     if err:
-        raise RuntimeError(f"{entry}: CUDA error {err} at launch")
+        raise KernelError(f"{entry}: CUDA error {err} at launch")
 
 
 def _p(t: torch.Tensor):
@@ -190,11 +215,35 @@ def batch_step(cols, dyn, visit, splits, sched, dels, epoch_max) -> None:
 
 
 def batch_step_levels(cols, dyn, visit, fast, splits, lv, dels,
-                      scratch_base, epoch_max) -> None:
+                      scratch_base, epoch_max, shared: bool = False) -> None:
+    """``shared``: K7b — ``cols`` are ``[N+1]``, ``splits [S, 2]``, ``lv
+    [L, W, 8]`` and ``dels [D]``, read by every doc."""
     right, _deleted, starts = dyn
     b, n1 = right.shape
-    _call("ytpu_batch_step_levels", right.device,
+    ax = 0 if shared else 1  # the schedules' first non-doc axis
+    entry = "ytpu_batch_step_levels_shared" if shared else "ytpu_batch_step_levels"
+    _call(entry, right.device,
           *_yata_tables(cols, dyn, visit), _p(fast), _p(splits), _p(lv),
           _p(dels), _p(scratch_base), b, n1, starts.shape[1],
-          splits.shape[1], lv.shape[1], lv.shape[2], dels.shape[1],
+          splits.shape[ax], lv.shape[ax], lv.shape[ax + 1], dels.shape[ax],
           fast.shape[1], epoch_max)
+
+
+def apply_plan_shared(lanes, right, deleted, starts, k_l, k_h, k_d) -> None:
+    b, n1 = right.shape
+    _call("ytpu_apply_plan_shared", lanes.device, _p(lanes), _p(right),
+          _p(deleted), _p(starts), b, n1, starts.shape[1], k_l, k_h, k_d)
+
+
+def conflict_scan(doc_id, cols, left, right, run_id, tile_sum) -> None:
+    """``cols``: client, clock, length, o_cl, o_ck, r_cl, r_ck; ``doc_id``
+    None for the per-doc variant."""
+    n = left.shape[0]
+    doc = _vp(None) if doc_id is None else _p(doc_id)
+    _call("ytpu_conflict_scan", left.device, doc, *(_p(c) for c in cols),
+          _p(left), _p(right), _p(run_id), _p(tile_sum), n)
+
+
+def anchor_lookup(flat_key, q_key, out) -> None:
+    _call("ytpu_anchor_lookup", q_key.device, _p(flat_key),
+          flat_key.shape[0], _p(q_key), _p(out), q_key.shape[0])

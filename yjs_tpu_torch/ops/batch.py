@@ -17,6 +17,12 @@ oracle parks them in pending buffers and full-state encode skips them
 too), and the DS section is the merged union.  Updates embedding
 subdocuments (ContentDoc) fall back to the scratch-doc oracle internally
 — same result, doc-level speed — mirroring the engine's gating seam.
+
+Without the C++ plan core (no toolchain, ``YTPU_NO_NATIVE_PLAN=1``) the
+columns are planned by the Python mirror, whose segment planner runs its
+kernels on ``device``: the CUDA device by default, which raises
+:class:`~.kernels.KernelError` without CUDA; ``device="cpu"`` runs their
+plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -25,10 +31,11 @@ from ..obs.prof import host_timed
 from .columns import DocMirror, UnsupportedUpdate
 
 
-def _loaded_mirror(updates: list[bytes], v2: bool):
+def _loaded_mirror(updates: list[bytes], v2: bool, device):
     from .native_mirror import NativeMirror, native_plan_available
 
-    m = NativeMirror("") if native_plan_available() else DocMirror("")
+    m = (NativeMirror("") if native_plan_available()
+         else DocMirror("", device=device))
     for u in updates:
         m.ingest(u, v2)
     m.prepare_step(want_levels=False)
@@ -37,7 +44,8 @@ def _loaded_mirror(updates: list[bytes], v2: bool):
 
 @host_timed("merge_updates")
 def merge_updates_columnar(
-    updates: list[bytes], v2: bool = False, out_v2: bool | None = None
+    updates: list[bytes], v2: bool = False, out_v2: bool | None = None,
+    device=None,
 ) -> bytes:
     """Merge concurrent updates into one equivalent update, column-wise
     (the doc-free twin of :func:`yjs_tpu.updates.merge_updates`).
@@ -47,7 +55,7 @@ def merge_updates_columnar(
     """
     ov2 = v2 if out_v2 is None else out_v2
     try:
-        m = _loaded_mirror(updates, v2)
+        m = _loaded_mirror(updates, v2, device)
     except UnsupportedUpdate:  # subdocuments: scratch-doc oracle
         from ..updates import convert_update_format, merge_updates
 
@@ -58,14 +66,15 @@ def merge_updates_columnar(
 
 @host_timed("diff_update")
 def diff_update_columnar(
-    update: bytes, encoded_state_vector: bytes, v2: bool = False
+    update: bytes, encoded_state_vector: bytes, v2: bool = False,
+    device=None,
 ) -> bytes:
     """What a peer at ``encoded_state_vector`` is missing from ``update``
     (the doc-free twin of :func:`yjs_tpu.updates.diff_update`)."""
     from ..updates import decode_state_vector
 
     try:
-        m = _loaded_mirror([update], v2)
+        m = _loaded_mirror([update], v2, device)
     except UnsupportedUpdate:  # subdocuments: scratch-doc oracle
         from ..updates import diff_update
 
@@ -77,11 +86,11 @@ def diff_update_columnar(
 
 @host_timed("encode_state_vector_from_update")
 def encode_state_vector_from_update_columnar(
-    update: bytes, v2: bool = False
+    update: bytes, v2: bool = False, device=None
 ) -> bytes:
     """The state vector an update would produce, without building a doc."""
     try:
-        return _loaded_mirror([update], v2).encode_state_vector()
+        return _loaded_mirror([update], v2, device).encode_state_vector()
     except UnsupportedUpdate:  # subdocuments: scratch-doc oracle
         from ..updates import encode_state_vector_from_update
 

@@ -597,8 +597,11 @@ class DocMirror:
     host replicates chain order anyway for exports.
     """
 
-    def __init__(self, root_name: str = "text"):
+    def __init__(self, root_name: str = "text", device=None):
         self.root_name = root_name
+        # where the segment planner runs its kernels (None: the CUDA
+        # device, raising without it; an engine passes its own device)
+        self.plan_device = device
         # client <-> dense slot mapping
         self.client_of_slot: list[int] = []
         self.slot_of_client: dict[int, int] = {}
@@ -1207,7 +1210,8 @@ class DocMirror:
                 from . import segment_planner as _sp
 
                 seg_plan = _sp.plan_doc(
-                    token.queries, snapshot=self._segment_snapshot
+                    token.queries, snapshot=self._segment_snapshot,
+                    device=self.plan_device,
                 )
             plan = self._prepare_phase_b(token, seg_plan, want_levels)
         except BaseException:

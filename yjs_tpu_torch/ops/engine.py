@@ -26,7 +26,10 @@ The resident tables are torch tensors on ``self.device``: a CUDA device
 unless the caller asks for ``device="cpu"`` (the tests do), where the
 kernels' plain PyTorch versions serve.  The batched sync paths
 (``state_vectors_batched`` and the device branch of
-``sync_step2_batch``) run the state-vector and diff-mask kernels.  The
+``sync_step2_batch``) run the state-vector and diff-mask kernels.  On
+Python mirrors the default segment-planner mode co-plans each flush's
+cold docs in one chunk (:func:`.segment_planner.plan_chunk`), whose
+conflict scan and anchor lookup run on the engine's device too.  The
 mesh is a later slice of the port and raises ``NotImplementedError``.
 """
 
@@ -76,12 +79,13 @@ def _native_plan_threads() -> int:
     return 1
 
 
-def make_mirror(root_name: str):
+def make_mirror(root_name: str, device=None):
     """DocMirror served by the C++ plan core when available; the pure-
-    Python mirror otherwise (no toolchain / YTPU_NO_NATIVE_PLAN)."""
+    Python mirror otherwise (no toolchain / YTPU_NO_NATIVE_PLAN), whose
+    segment planner runs its kernels on ``device``."""
     if native_plan_available():
         return NativeMirror(root_name)
-    return DocMirror(root_name)
+    return DocMirror(root_name, device=device)
 
 
 def visible_text(mirror, rows, deleted) -> str:
@@ -158,25 +162,6 @@ def _not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet ({where})"
     )
-
-
-def _resolve_device(device=None) -> torch.device:
-    """The engine's device: ``None`` means the CUDA device; a CUDA
-    device without CUDA raises (pass ``device="cpu"`` for the plain
-    PyTorch kernels)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "BatchEngine needs a CUDA device (torch.cuda.is_available() "
-                "is False); pass device='cpu' to run the plain PyTorch "
-                "kernels on the CPU"
-            )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 class _PhasePair:
@@ -390,7 +375,7 @@ class BatchEngine:
             raise _not_ported(
                 "the doc-sharded mesh", "ROADMAP queue 1, item 10"
             )
-        self.device = _resolve_device(device)
+        self.device = kernels.resolve_device(device, "BatchEngine")
         self._cuda = self.device.type == "cuda"
         self.n_docs = n_docs
         self.root_name = root_name
@@ -418,7 +403,9 @@ class BatchEngine:
         # are YEvent-shaped dicts computed from the step plan (reference
         # observe/observeDeep, AbstractType.js:360-389)
         self._event_listeners: dict[int, list] = {}
-        self.mirrors: list = [make_mirror(root_name) for _ in range(n_docs)]
+        self.mirrors: list = [
+            make_mirror(root_name, self.device) for _ in range(n_docs)
+        ]
         # CPU fallback docs (Provider gating): doc idx -> Doc
         self.fallback: dict[int, Doc] = {}
         # every demotion ever, with its reason — scope gaps are measurable,
@@ -517,7 +504,8 @@ class BatchEngine:
         'cpu') — not a demotion, so it is not recorded as one."""
         fb = Doc(gc=False)
         self.fallback[doc] = fb
-        self.mirrors[doc] = DocMirror(self.root_name)  # dead mirror
+        # dead mirror
+        self.mirrors[doc] = DocMirror(self.root_name, device=self.device)
         fb.on("update", lambda u, origin, d, i=doc: self._emit(i, u))
         if doc in self._event_listeners:
             self._attach_cpu_events(doc, fb)
@@ -636,7 +624,8 @@ class BatchEngine:
                     doc, update, v2, f"replay: {type(e).__name__}: {e}"
                 )
         self.fallback[doc] = fb
-        self.mirrors[doc] = DocMirror(self.root_name)  # dead mirror
+        # dead mirror
+        self.mirrors[doc] = DocMirror(self.root_name, device=self.device)
         plan_cache.note_invalidation("demote")
         self._update_log[doc] = []
         self._uploaded_rows[doc] = 0
@@ -1038,6 +1027,7 @@ class BatchEngine:
             raise ValueError(f"doc {doc} is CPU-served; reset it first")
         if self.mirrors[doc].n_rows or self._update_log[doc]:
             raise RuntimeError(f"slot {doc} is not empty; reset_doc first")
+        self._own(mirror)
         self.mirrors[doc] = mirror
         self._update_log[doc] = []
         r, d, h = mirror.rebuild_compacted_self(self.gc)
@@ -1089,7 +1079,7 @@ class BatchEngine:
         nothing.  The dead-letter queue is NOT touched here (the caller
         decides whether the slot's letters travel with the evicted
         doc)."""
-        self.mirrors[doc] = make_mirror(self.root_name)
+        self.mirrors[doc] = make_mirror(self.root_name, self.device)
         plan_cache.note_invalidation("reset")
         self.fallback.pop(doc, None)
         self._pending_hydration.pop(doc, None)
@@ -1118,6 +1108,23 @@ class BatchEngine:
             torch.profiler.record_function(f"ytpu.{name}"),
             self.obs.tracer.span(f"ytpu.{name}", **args),
         )
+
+    def _own(self, mirror) -> None:
+        """A Python mirror plans on this engine's device: one replayed
+        from the plan cache or hydrated into a slot may come from an
+        engine on another device."""
+        if type(mirror) is DocMirror:
+            mirror.plan_device = self.device
+
+    def _replay_py(self, m, ent):
+        """Replay a cached Python-mirror entry onto ``m``, keeping the
+        mirror's object identity (engine internals and tests may hold
+        references); returns the cached plan's copy."""
+        m2, plan = ent.clone()
+        m.__dict__.clear()
+        m.__dict__.update(m2.__dict__)
+        self._own(m)
+        return plan
 
     def _finish_flush(self, metrics: dict) -> None:
         """The single exit point of every flush path: append to the flush
@@ -1186,6 +1193,7 @@ class BatchEngine:
         rolled_back = 0
         cache_hits = cache_misses = 0
         t_plan_cached = t_plan_cold = 0.0
+        plan_fanout = 1  # docs co-planned by one whole-chunk planner call
         emitting = bool(self._update_listeners)
         observing = self._event_listeners
         # kernel selection: "apply" (default) ships the planner's final
@@ -1219,16 +1227,23 @@ class BatchEngine:
                 plans = dict(work)  # presence for the empty-flush check
             else:
                 cache = plan_cache.get_cache()
-                # the Python mirror plans per doc on the NumPy segment
-                # planner; its whole-chunk device mode is not ported
                 seg_mode = segment_planner.plan_segment_mode()
+                # device mode co-plans every cold DocMirror's anchors in
+                # ONE batched kernel pass: phase A runs per doc in the
+                # loop, the whole-chunk segment plan lands between, phase
+                # B finishes per doc below
+                chunk_cold: list = []  # (doc, mirror, cache key, phase-A token)
+                chunk_keys: set = set()
+                # intra-flush duplicates of a chunked doc's key wait for
+                # the leader's cache insert and replay it (the per-doc
+                # loop gets this for free by inserting before the next
+                # lookup)
+                chunk_dup: list = []  # (doc, mirror, cache key)
                 for i, m in enumerate(self.mirrors):
                     if i in self.fallback:
                         continue
                     if not m._incoming and not m.has_pending():
                         continue  # idle doc: nothing to plan, upload, or emit
-                    if type(m) is DocMirror and seg_mode not in ("np", "off"):
-                        raise segment_planner.unported_mode_error(seg_mode)
                     if emitting or i in observing:
                         pre_svs[i] = m.state_vector()
                     key = ent = None
@@ -1242,19 +1257,40 @@ class BatchEngine:
                         if isinstance(m, NativeMirror):
                             plans[i] = m.make_plan(m.adopt_cached(ent))
                         else:
-                            m2, plans[i] = ent.clone()
-                            # keep the mirror's object identity (engine
-                            # internals and tests may hold references)
-                            m.__dict__.clear()
-                            m.__dict__.update(m2.__dict__)
+                            plans[i] = self._replay_py(m, ent)
                         cache_hits += 1
                         t_plan_cached += time.perf_counter() - t_d0
+                        continue
+                    if seg_mode == "device" and type(m) is DocMirror:
+                        if key is not None and key in chunk_keys:
+                            chunk_dup.append((i, m, key))
+                            continue
+                        try:
+                            token = m.prepare_step_begin()
+                        except UnsupportedUpdate as e:
+                            self._demote(i, pre_svs.get(i), reason=str(e))
+                            demoted_now += 1
+                        except kernels.KernelError:
+                            raise  # a dead kernel: stop, never demote
+                        except Exception as e:
+                            if self._strict:
+                                raise
+                            self._isolate_failure(i, e, pre_svs.get(i))
+                            demoted_now += 1
+                            rolled_back += 1
+                        else:
+                            chunk_cold.append((i, m, key, token))
+                            if key is not None:
+                                chunk_keys.add(key)
+                        t_plan_cold += time.perf_counter() - t_d0
                         continue
                     try:
                         plans[i] = m.prepare_step(want_levels=want_levels)
                     except UnsupportedUpdate as e:
                         self._demote(i, pre_svs.get(i), reason=str(e))
                         demoted_now += 1
+                    except kernels.KernelError:
+                        raise  # a dead kernel: stop, never demote
                     except Exception as e:
                         # malformed bytes (or any integration fault):
                         # roll back and contain THIS doc; the rest of
@@ -1272,6 +1308,76 @@ class BatchEngine:
                             else:
                                 cache.insert_py(key, m, plans[i])
                     t_plan_cold += time.perf_counter() - t_d0
+                if chunk_cold:
+                    t_d0 = time.perf_counter()
+                    try:
+                        seg_plans = segment_planner.plan_chunk(
+                            [
+                                (t.queries, m._segment_snapshot)
+                                for (_i, m, _k, t) in chunk_cold
+                            ],
+                            mode=seg_mode,
+                            device=self.device,
+                        )
+                    except kernels.KernelError:
+                        raise
+                    except Exception:
+                        # planner fault: fall back to per-doc planning
+                        # in finish (a doc-level fault there still
+                        # poisons/demotes only its own doc)
+                        seg_plans = ["auto"] * len(chunk_cold)
+                    co_planned = sum(
+                        1 for (_i, _m, _k, t) in chunk_cold
+                        if t.queries is not None
+                    )
+                    plan_fanout = max(plan_fanout, co_planned)
+                    for (i, m, key, token), sp in zip(chunk_cold, seg_plans):
+                        try:
+                            plans[i] = m.prepare_step_finish(
+                                token, sp, want_levels
+                            )
+                        except UnsupportedUpdate as e:
+                            self._demote(i, pre_svs.get(i), reason=str(e))
+                            demoted_now += 1
+                        except kernels.KernelError:
+                            raise  # a dead kernel: stop, never demote
+                        except Exception as e:
+                            if self._strict:
+                                raise
+                            self._isolate_failure(i, e, pre_svs.get(i))
+                            demoted_now += 1
+                            rolled_back += 1
+                        else:
+                            if key is not None:
+                                cache_misses += 1
+                                cache.insert_py(key, m, plans[i])
+                    t_plan_cold += time.perf_counter() - t_d0
+                for i, m, key in chunk_dup:
+                    t_d0 = time.perf_counter()
+                    ent = cache.lookup(key) if cache is not None else None
+                    if ent is not None:
+                        plans[i] = self._replay_py(m, ent)
+                        cache_hits += 1
+                        t_plan_cached += time.perf_counter() - t_d0
+                        continue
+                    # leader demoted/failed before inserting: plan solo
+                    try:
+                        plans[i] = m.prepare_step(want_levels=want_levels)
+                    except UnsupportedUpdate as e:
+                        self._demote(i, pre_svs.get(i), reason=str(e))
+                        demoted_now += 1
+                    except kernels.KernelError:
+                        raise  # a dead kernel: stop, never demote
+                    except Exception as e:
+                        if self._strict:
+                            raise
+                        self._isolate_failure(i, e, pre_svs.get(i))
+                        demoted_now += 1
+                        rolled_back += 1
+                    else:
+                        cache_misses += 1
+                        cache.insert_py(key, m, plans[i])
+                    t_plan_cold += time.perf_counter() - t_d0
         t_plan = time.perf_counter()
         # ONE schema (obs.FLUSH_METRICS_SCHEMA) for every exit: each path
         # overwrites only the fields it measures, so the key set cannot
@@ -1286,7 +1392,7 @@ class BatchEngine:
             t_plan_cold_s=t_plan_cold,
             plan_cache_hits=cache_hits,
             plan_cache_misses=cache_misses,
-            plan_threads=1,
+            plan_threads=plan_fanout,
             plan_fastpath_structs=sum(
                 getattr(p, "fastpath_structs", 0) or 0
                 for p in plans.values()

@@ -22,6 +22,13 @@ Three more run YATA itself on the device (``YTPU_KERNEL=levels|seq``):
   in one pass and sends true conflicts through the same single-item
   integrate.
 
+Two broadcast variants fan one doc's work out over the batch (the B4
+replay shape; no engine path calls them, as in the JAX package):
+
+- :func:`apply_plan_shared` scatters one resolved delta into every doc;
+- :func:`batch_step_levels_shared` runs the level-parallel step with one
+  static table, schedule and delete list read by every doc.
+
 Two more serve the batched sync paths of the engine and the provider:
 
 - :func:`state_vector_kernel` reduces each doc's rows to its dense state
@@ -43,10 +50,19 @@ returns the same tensor objects it was given.
 ``launches`` counts, per wrapper, the CUDA kernel launches it made; the
 plain version never counts.
 
-The NumPy branches of the segment planner's kernels (K11/K12:
-``plan_anchor_lookup``, ``plan_conflict_scan``) live here too; their
-device versions are a later slice of the port and raise
-``NotImplementedError``.
+The segment planner's two kernels live here too: :func:`conflict_scan`
+(chain masks and run ids, per doc or over a doc-major chunk) and
+:func:`anchor_lookup` (a batched int64 ``searchsorted``).  The planner
+reaches them only through ``plan_conflict_scan``,
+``plan_chunk_conflict_scan``, ``plan_anchor_lookup`` and
+:func:`lookup_keys`, which take host numpy and give host numpy back:
+``backend="np"`` (the default) stays on NumPy; ``"jax"``, the JAX
+package's name for its device path, pads the columns to a power-of-two
+length, copies them to ``device`` (the CUDA device unless told
+otherwise), runs the wrapper and copies back.
+
+A kernel that cannot be built, loaded or launched, or a CUDA device
+asked for on a host without one, raises :class:`KernelError`.
 """
 
 from __future__ import annotations
@@ -57,6 +73,7 @@ import numpy as np
 import torch
 
 from ..obs.prof import profiled
+from ._cuda import KernelError
 from .columns import GATHER_SUCC
 
 NULL = -1
@@ -66,6 +83,8 @@ launches = {
     "apply_lanes": 0, "scatter_rows": 0, "list_ranks": 0,
     "state_vector": 0, "diff_mask": 0,
     "scatter_statics": 0, "batch_step": 0, "batch_step_levels": 0,
+    "apply_plan_shared": 0, "batch_step_levels_shared": 0,
+    "conflict_scan": 0, "conflict_scan_chunk": 0, "anchor_lookup": 0,
 }
 
 
@@ -833,15 +852,263 @@ def batch_step_levels(statics, dyn, splits, lv_sched, delete_rows,
 
 
 # ---------------------------------------------------------------------------
-# segment-sorted planning (NumPy; device versions come in a later slice)
+# K7: the broadcast variants (one doc's work fanned out over the batch)
 # ---------------------------------------------------------------------------
 
 
-def _device_planner_missing(name: str):
-    return NotImplementedError(
-        f"{name}: the device segment-planner kernels (K11-K13) are not "
-        "ported yet (ROADMAP queue 1, item 9); use YTPU_PLAN_SEGMENT=np"
+def apply_plan_shared_plain(dyn, lanes, k_l, k_h, k_d):
+    """Plain PyTorch version of :func:`apply_plan_shared` (in place)."""
+    right_link, deleted, starts = dyn
+    lanes = lanes.to(torch.int32)
+    b = right_link.shape[0]
+    rows, vals = lanes[:k_l], lanes[k_l : 2 * k_l]
+    o = 2 * k_l
+    segs, hvals = lanes[o : o + k_h], lanes[o + k_h : o + 2 * k_h]
+    dels = lanes[o + 2 * k_h :]
+    docs = torch.arange(b, device=lanes.device)
+
+    def fan(idx):  # every doc's copy of a section: (doc, idx) pairs
+        k = idx.shape[0]
+        return docs.repeat_interleave(k), idx.repeat(b)
+
+    if k_l:
+        d, r = fan(rows)
+        _drop_set(right_link, d, r, vals.repeat(b))
+    if k_h:
+        d, r = fan(segs)
+        _drop_set(starts, d, r, hvals.repeat(b))
+    if k_d:
+        d, r = fan(dels)
+        _drop_set(deleted, d, r, True)
+    return right_link, deleted, starts
+
+
+@profiled("apply_plan_shared")
+def apply_plan_shared(dyn, lanes, k_l, k_h, k_d):
+    """Broadcast bulk apply, in place: ONE doc's resolved delta written
+    into every doc of the batch (the B4 replay shape).
+
+    lanes: one i32 vector — ``[rows|vals]*k_l`` link writes,
+    ``[segs|hvals]*k_h`` head writes, ``[dels]*k_d`` delete marks.
+    Negative targets count from the end; what is still out of bounds
+    (padding) is dropped.  Returns ``dyn``."""
+    right_link, deleted, starts = dyn
+    if not _on_cuda(right_link, deleted, starts, lanes):
+        return apply_plan_shared_plain(dyn, lanes, k_l, k_h, k_d)
+    from . import _cuda
+
+    _check(right_link, "right_link", (torch.int32,), 2)
+    _check(deleted, "deleted", (torch.bool,), 2)
+    _check(starts, "starts", (torch.int32,), 2)
+    _check(lanes, "lanes", (torch.int32,), 1)
+    b = right_link.shape[0]
+    if deleted.shape != right_link.shape or starts.shape[0] != b:
+        raise ValueError("table shapes disagree")
+    if lanes.shape[0] != 2 * k_l + 2 * k_h + k_d:
+        raise ValueError("lanes length does not match the section widths")
+    if b and k_l + k_h + k_d:
+        _cuda.apply_plan_shared(lanes, right_link, deleted, starts,
+                                k_l, k_h, k_d)
+        launches["apply_plan_shared"] += 1
+    return right_link, deleted, starts
+
+
+def batch_step_levels_shared_plain(statics, dyn, splits, lv_sched,
+                                   delete_rows, scratch_base, stats=None):
+    """Plain PyTorch version of :func:`batch_step_levels_shared`: the
+    shared inputs broadcast over the doc axis (views, no copies) into
+    :func:`batch_step_levels_plain` — the reference's ``vmap`` with
+    ``in_axes=None``."""
+    b = dyn[0].shape[0]
+    cols = {k: statics[k].expand(b, -1) for k in STATIC_KEYS}
+    return batch_step_levels_plain(
+        cols, dyn, splits.expand(b, *splits.shape),
+        lv_sched.expand(b, *lv_sched.shape), delete_rows.expand(b, -1),
+        scratch_base, stats,
     )
+
+
+@profiled("batch_step_levels_shared")
+def batch_step_levels_shared(statics, dyn, splits, lv_sched, delete_rows,
+                             scratch_base):
+    """:func:`batch_step_levels` where every doc shares one static table,
+    split list, level schedule and delete list (the broadcast-replay
+    shape), in place.
+
+    statics: the six ``[N+1]`` int32 columns (``client_key`` as its u32
+    bit pattern); splits ``[S, 2]``, lv_sched ``[L, W, 8]``, delete_rows
+    ``[D]``, all int32 and NULL-padded; dyn and scratch_base ``[B]`` keep
+    the doc axis.  Returns ``dyn``."""
+    args = (splits, lv_sched, delete_rows, scratch_base)
+    cols = [statics[k] for k in STATIC_KEYS]
+    if not _on_cuda(*cols, *dyn, *args):
+        return batch_step_levels_shared_plain(statics, dyn, *args)
+    from . import _cuda
+
+    right, deleted, starts = dyn
+    _check(right, "right_link", (torch.int32,), 2)
+    _check(deleted, "deleted", (torch.bool,), 2)
+    _check(starts, "starts", (torch.int32,), 2)
+    b, n1 = right.shape
+    if deleted.shape != right.shape or starts.shape[0] != b:
+        raise ValueError("table shapes disagree")
+    for key, col in zip(STATIC_KEYS, cols):
+        _check(col, key, (torch.int32,), 1)
+        if col.shape[0] != n1:
+            raise ValueError(f"static column {key} must be [{n1}]")
+    for t, name, ndim in ((splits, "splits", 2), (lv_sched, "lv_sched", 3),
+                          (delete_rows, "delete_rows", 1),
+                          (scratch_base, "scratch_base", 1)):
+        _check(t, name, (torch.int32,), ndim)
+    if splits.shape[1] != 2 or lv_sched.shape[2] != 8:
+        raise ValueError("splits must be [S, 2] and lv_sched [L, W, 8]")
+    if scratch_base.shape[0] != b:
+        raise ValueError("scratch_base must be [B]")
+    if b:
+        visit = torch.full_like(right, NULL)
+        fast = torch.empty((b, max(1, lv_sched.shape[1])), dtype=torch.uint8,
+                           device=right.device)
+        _cuda.batch_step_levels(cols, dyn, visit, fast, splits, lv_sched,
+                                delete_rows, scratch_base, EPOCH_MAX,
+                                shared=True)
+        launches["batch_step_levels_shared"] += 1
+    return dyn
+
+
+# ---------------------------------------------------------------------------
+# K11 / K12: the segment planner's kernels
+# ---------------------------------------------------------------------------
+
+def resolve_device(device=None, who: str = "the device planner") -> torch.device:
+    """``None`` is the CUDA device, which raises without CUDA (pass
+    ``device="cpu"`` for the plain PyTorch kernels); ``who`` names the
+    caller in that error."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise KernelError(
+                f"{who} needs a CUDA device (torch.cuda.is_available() "
+                "is False); pass device='cpu' to run the plain PyTorch "
+                "kernels on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _bucket_pow2(n: int, minimum: int = 64) -> int:
+    """Next power-of-two lane width >= n: the kernels see the reference's
+    bucketed shapes (its jitted kernels quantize so that a flush does
+    not retrace)."""
+    b = minimum
+    while b < n:
+        b <<= 1
+    return b
+
+
+def _pad_pow2(arr: np.ndarray, n_pad: int, fill) -> np.ndarray:
+    """``arr`` as int64, padded to the bucketed length with ``fill``
+    (fresh allocation — never a view of caller memory)."""
+    out = np.full(n_pad, fill, np.int64)
+    out[: arr.shape[0]] = arr
+    return out
+
+
+def _run_padded(device, fn, n_out: int, *padded):
+    """Copy the padded host columns to ``device``, call the kernel
+    wrapper ``fn`` on them and copy its outputs' first ``n_out`` lanes
+    back: a tuple of fresh host numpy arrays (or one array).  The
+    planner's kernels take and give host memory on every call, as the
+    reference's ``np.asarray`` does."""
+    dev = resolve_device(device)
+    out = fn(*(torch.from_numpy(a).to(dev) for a in padded))
+    if isinstance(out, torch.Tensor):
+        return out[:n_out].cpu().numpy()
+    return tuple(t[:n_out].cpu().numpy() for t in out)
+
+
+_SCAN_COLS = ("client", "clock", "length", "o_cl", "o_ck", "r_cl", "r_ck")
+
+
+def conflict_scan_plain(client, clock, length, o_cl, o_ck, r_cl, r_ck,
+                        doc_id=None):
+    """Plain PyTorch version of :func:`conflict_scan`."""
+    n = client.shape[0]
+    left = torch.zeros(n, dtype=torch.bool, device=client.device)
+    right = torch.zeros_like(left)
+    if n > 1:
+        p_cl, p_ck = client[:-1], clock[:-1]
+        p_end = p_ck + length[:-1]
+
+        def inside(a_cl, a_ck):
+            return ((a_cl[1:] == p_cl) & (a_cl[1:] >= 0)
+                    & (a_ck[1:] >= p_ck) & (a_ck[1:] < p_end))
+
+        same = (doc_id[1:] == doc_id[:-1]) if doc_id is not None else True
+        left[1:] = inside(o_cl, o_ck) & same
+        right[1:] = inside(r_cl, r_ck) & same
+    run_id = torch.cumsum((~(left | right)).to(torch.int64), 0)
+    return left, right, run_id
+
+
+@profiled("conflict_scan")
+def conflict_scan(client, clock, length, o_cl, o_ck, r_cl, r_ck,
+                  doc_id=None):
+    """Chain masks over a clock-sorted flush batch: ``left[j]`` /
+    ``right[j]`` mean ref j's origin / rightOrigin lies inside ref j-1's
+    id range (element 0 is never chained); ``run_id`` is the inclusive
+    cumsum of ``~(left | right)``.  With ``doc_id`` (the doc-major
+    concatenation of a chunk's batches) a chain never crosses a doc
+    boundary.
+
+    All inputs are ``[n]`` int64 (padding lanes: client and doc -1).
+    Returns ``(left bool, right bool, run_id int64)``."""
+    cols = (client, clock, length, o_cl, o_ck, r_cl, r_ck)
+    ins = cols if doc_id is None else (*cols, doc_id)
+    if not _on_cuda(*ins):
+        return conflict_scan_plain(*cols, doc_id)
+    from . import _cuda
+
+    n = client.shape[0]
+    for t, name in zip(ins, _SCAN_COLS + ("doc_id",)):
+        _check(t, name, (torch.int64,), 1)
+        if t.shape[0] != n:
+            raise ValueError(f"{name} has {t.shape[0]} lanes, client {n}")
+    dev = client.device
+    left = torch.empty(n, dtype=torch.bool, device=dev)
+    right = torch.empty(n, dtype=torch.bool, device=dev)
+    run_id = torch.empty(n, dtype=torch.int64, device=dev)
+    if n:
+        tiles = torch.empty(-(-n // 1024), dtype=torch.int64, device=dev)
+        _cuda.conflict_scan(doc_id, cols, left, right, run_id, tiles)
+        launches["conflict_scan" if doc_id is None
+                 else "conflict_scan_chunk"] += 1
+    return left, right, run_id
+
+
+def anchor_lookup_plain(flat_key, q_key):
+    """Plain PyTorch version of :func:`anchor_lookup`."""
+    return torch.searchsorted(flat_key, q_key, right=True) - 1
+
+
+@profiled("anchor_lookup")
+def anchor_lookup(flat_key, q_key):
+    """``searchsorted(flat_key, q_key, side="right") - 1`` over a sorted
+    int64 haystack: the last fragment starting at or before each query
+    key, or -1.  Both are ``[n]`` int64; returns ``[len(q_key)]`` int64."""
+    if not _on_cuda(flat_key, q_key):
+        return anchor_lookup_plain(flat_key, q_key)
+    from . import _cuda
+
+    _check(flat_key, "flat_key", (torch.int64,), 1)
+    _check(q_key, "q_key", (torch.int64,), 1)
+    out = torch.empty_like(q_key)
+    if q_key.shape[0]:
+        _cuda.anchor_lookup(flat_key, q_key, out)
+        launches["anchor_lookup"] += 1
+    return out
 
 
 def _compose_keys(flat_slot, flat_clock, q_slot, q_clock):
@@ -855,36 +1122,48 @@ def _compose_keys(flat_slot, flat_clock, q_slot, q_clock):
 
 
 def plan_anchor_lookup(flat_slot, flat_clock, q_slot, q_clock,
-                       backend: str = "np"):
+                       backend: str = "np", device=None):
     """Candidate fragment-index position for each (q_slot, q_clock): the
     last fragment starting at or before the queried clock, or -1.  The
-    caller must verify slot match + containment before trusting it."""
-    if backend != "np":
-        raise _device_planner_missing("plan_anchor_lookup")
+    caller must verify slot match + containment before trusting it.
+    ``backend="jax"`` runs :func:`anchor_lookup` on ``device``."""
     flat_key, q_key = _compose_keys(flat_slot, flat_clock, q_slot, q_clock)
-    return np.searchsorted(flat_key, q_key, side="right") - 1
+    return lookup_keys(flat_key, q_key, backend, device)
 
 
-def plan_conflict_scan(client, clock, length, o_client, o_clock,
-                       r_client, r_clock, backend: str = "np"):
-    """Chain masks over a clock-sorted flush batch: ``left[j]`` /
-    ``right[j]`` mean ref j's origin / rightOrigin lies inside ref j-1's
-    id range (so its anchor row IS ref j-1's row); ``run_id`` groups the
-    maximal chained (conflict-free) runs."""
-    if backend != "np":
-        raise _device_planner_missing("plan_conflict_scan")
+def lookup_keys(flat_key, q_key, backend: str = "np", device=None):
+    """``searchsorted(flat_key, q_key, side="right") - 1`` over composed
+    int64 keys; ``backend="jax"`` runs :func:`anchor_lookup` on
+    ``device``, the haystack padded with ``int64.max`` (sorts last) and
+    the queries with -1."""
+    if backend != "jax":
+        return np.searchsorted(flat_key, q_key, side="right") - 1
+    fb = _bucket_pow2(max(1, flat_key.shape[0]))
+    qb = _bucket_pow2(q_key.shape[0])
+    return _run_padded(
+        device, anchor_lookup, q_key.shape[0],
+        _pad_pow2(flat_key, fb, np.iinfo(np.int64).max),
+        _pad_pow2(q_key, qb, -1),
+    )
+
+
+def _scan_np(doc_id, client, clock, length, o_client, o_clock, r_client,
+             r_clock):
     p_client, p_clock = client[:-1], clock[:-1]
     p_end = p_clock + length[:-1]
+    same_doc = True if doc_id is None else doc_id[1:] == doc_id[:-1]
     left = np.zeros(len(client), bool)
     right = np.zeros(len(client), bool)
     left[1:] = (
-        (o_client[1:] == p_client)
+        same_doc
+        & (o_client[1:] == p_client)
         & (o_client[1:] >= 0)
         & (o_clock[1:] >= p_clock)
         & (o_clock[1:] < p_end)
     )
     right[1:] = (
-        (r_client[1:] == p_client)
+        same_doc
+        & (r_client[1:] == p_client)
         & (r_client[1:] >= 0)
         & (r_clock[1:] >= p_clock)
         & (r_clock[1:] < p_end)
@@ -892,3 +1171,42 @@ def plan_conflict_scan(client, clock, length, o_client, o_clock,
     run_id = np.cumsum(~(left | right))
     return left, right, run_id
 
+
+# padding lanes: no client (never chained, never chaining), doc -1
+_SCAN_FILLS = (-1, 0, 0, -1, 0, -1, 0)
+
+
+def _scan_on(device, doc_id, cols):
+    """:func:`conflict_scan` on ``device`` over the pow2-padded host
+    columns; returns the real lanes' masks and run ids."""
+    n = cols[0].shape[0]
+    nb = _bucket_pow2(n)
+    padded = [_pad_pow2(c, nb, f) for c, f in zip(cols, _SCAN_FILLS)]
+    if doc_id is not None:
+        padded.append(_pad_pow2(doc_id, nb, -1))
+    return _run_padded(device, conflict_scan, n, *padded)
+
+
+def plan_conflict_scan(client, clock, length, o_client, o_clock,
+                       r_client, r_clock, backend: str = "np", device=None):
+    """Chain masks over a clock-sorted flush batch: ``left[j]`` /
+    ``right[j]`` mean ref j's origin / rightOrigin lies inside ref j-1's
+    id range (so its anchor row IS ref j-1's row); ``run_id`` groups the
+    maximal chained (conflict-free) runs.  ``backend="jax"`` runs
+    :func:`conflict_scan` on ``device``."""
+    cols = (client, clock, length, o_client, o_clock, r_client, r_clock)
+    if backend == "jax":
+        return _scan_on(device, None, cols)
+    return _scan_np(None, *cols)
+
+
+def plan_chunk_conflict_scan(doc_id, client, clock, length, o_client,
+                             o_clock, r_client, r_clock,
+                             backend: str = "np", device=None):
+    """Doc-aware twin of :func:`plan_conflict_scan` for whole-chunk
+    planning: one scan over the doc-major concatenation of every cold
+    doc's flush batch, ``doc_id`` breaking chains at doc boundaries."""
+    cols = (client, clock, length, o_client, o_clock, r_client, r_clock)
+    if backend == "jax":
+        return _scan_on(device, doc_id, cols)
+    return _scan_np(doc_id, *cols)

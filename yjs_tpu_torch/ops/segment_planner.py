@@ -3,28 +3,35 @@
 The segment-sorted planner resolves anchors as verified *hints*
 feeding the sequential host walk:
 
-- one conflict scan over the clock-sorted flush batch detects chained
-  runs (typing runs, prepend storms) — a chained struct's anchor IS the
-  previous struct's row, no per-struct walk;
-- one composed-key searchsorted resolves every remaining anchor;
+- one conflict scan over the (doc, client, clock)-sorted flush batch
+  detects chained runs (typing runs, prepend storms) — a chained
+  struct's anchor IS the previous struct's row, no per-struct walk;
+- one composed-key searchsorted resolves every remaining anchor — in
+  ``device`` mode for the whole flush chunk at once (all cold docs
+  co-planned in one batched kernel call);
 - the structs the scan cannot chain form the *conflict residue* — the
   only structs handed to the sequential YATA walk.
 
 Modes (``YTPU_PLAN_SEGMENT``):
 
 ========  ==================================================
-device    whole-chunk planning on device kernels (JAX package
-          default; K11-K13, not ported yet: raises)
+device    default: whole-chunk planning on the kernels
 np        per-doc planning on the NumPy kernels
-jax       per-doc planning on device kernels (not ported yet:
-          raises)
+jax       per-doc planning on the kernels
 off       pure sequential host walk (the A/B lane)
 ========  ==================================================
 
-The native planner (:mod:`.native_mirror`) reads the mode only as an
-on/off flag, so the port's default flush path is unaffected by the
-missing device modes; engines on the Python mirror
-(``YTPU_NO_NATIVE_PLAN=1``) run with ``YTPU_PLAN_SEGMENT=np``.
+The kernels (``kernels.conflict_scan``, ``kernels.anchor_lookup``,
+reached through ``kernels.plan_*`` and ``kernels.lookup_keys``, which
+pad the columns to a power-of-two length) run on the ``device`` the
+caller passes: the CUDA device unless told
+otherwise (the engine passes its own), where they raise without CUDA;
+on ``"cpu"`` their plain PyTorch versions serve.  Their keys are true
+int64: the JAX package truncates them to int32 (ROADMAP R2), so its
+candidates can differ from these, which equal the ``np`` mode's.  The
+native planner (:mod:`.native_mirror`) reads the mode only as an on/off
+flag.  A mesh of more than one device (the sharded lookup, K13) is not
+ported and raises.
 
 Every array this module returns is freshly allocated host memory.
 
@@ -98,22 +105,6 @@ class SegmentPlan:
     __slots__ = (
         "hint_l", "hint_r", "chain_l", "chain_r", "run_id", "spans",
         "snapshot_reused",
-    )
-
-
-def unported_mode_error(mode: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"YTPU_PLAN_SEGMENT={mode}: the device segment-planner kernels "
-        "(K11-K13) are not ported yet (ROADMAP queue 1, item 9); use "
-        "YTPU_PLAN_SEGMENT=np or off"
-    )
-
-
-def _scan_doc(q: SegmentQueries):
-    """Per-doc conflict scan (NumPy)."""
-    return kernels.plan_conflict_scan(
-        q.client, q.clock, q.length, q.o_cl, q.o_ck, q.r_cl, q.r_ck,
-        backend="np",
     )
 
 
@@ -203,20 +194,22 @@ def _needed(q: SegmentQueries, chain_l, chain_r) -> int:
 
 
 def plan_doc(q: SegmentQueries | None, mode: str | None = None,
-             snapshot=None) -> SegmentPlan | None:
+             snapshot=None, device=None) -> SegmentPlan | None:
     """Plan one doc's flush batch.  ``snapshot`` is a zero-arg callable
     returning ``(flat_slot, flat_clock, flat_row, row_len, n_slots)``
     (the slot-major fragment-index snapshot); it is only invoked when
     the chain masks leave enough anchors unresolved to justify the
-    rebuild."""
+    rebuild.  Every mode but ``np`` runs the kernels on ``device``."""
     if q is None:
         return None
     mode = mode or plan_segment_mode()
     if mode == "off" or q.n < MIN_RUN:
         return None
-    if mode != "np":
-        raise unported_mode_error(mode)
-    chain_l, chain_r, run_id = _scan_doc(q)
+    backend = "np" if mode == "np" else "jax"
+    chain_l, chain_r, run_id = kernels.plan_conflict_scan(
+        q.client, q.clock, q.length, q.o_cl, q.o_ck, q.r_cl, q.r_ck,
+        backend=backend, device=device,
+    )
     plan = SegmentPlan()
     plan.chain_l, plan.chain_r, plan.run_id = chain_l, chain_r, run_id
     plan.spans = _chain_spans(q, chain_l, chain_r, run_id)
@@ -232,7 +225,7 @@ def plan_doc(q: SegmentQueries | None, mode: str | None = None,
     q_slot = np.concatenate([q.o_slot, q.r_slot])
     q_ck = np.concatenate([q.o_ck, q.r_ck])
     cand = kernels.plan_anchor_lookup(
-        flat_slot, flat_clock, q_slot, q_ck, backend="np"
+        flat_slot, flat_clock, q_slot, q_ck, backend=backend, device=device
     )
     hint = _verify_hints(
         cand, q_slot, q_ck, flat_slot, flat_clock, flat_row, row_len
@@ -241,21 +234,129 @@ def plan_doc(q: SegmentQueries | None, mode: str | None = None,
     return plan
 
 
-def plan_chunk(items, mode: str | None = None, mesh=None):
-    """Plan a whole flush chunk of cold docs: ``items`` is a list of
-    ``(queries, snapshot)`` pairs (either may be ``None``); returns a
-    same-length list of :class:`SegmentPlan` (or ``None``) per doc.
+def plan_chunk(items, mode: str | None = None, mesh=None, device=None):
+    """Plan a whole flush chunk of cold docs in one batched kernel pass.
 
-    ``np`` plans each doc with :func:`plan_doc`; ``off`` plans none.
-    The whole-chunk ``device`` mode (one batched scan and lookup,
-    sharded over ``mesh``) is a later slice of the port and raises."""
+    ``items`` is a list of ``(queries, snapshot)`` pairs (either may be
+    ``None``); returns a same-length list of :class:`SegmentPlan` (or
+    ``None``) per doc.  Doc boundaries break chains via the doc-aware
+    conflict scan; anchor lookups for every doc that still needs its
+    snapshot compose ``(doc, slot, clock)`` into one key space so a
+    single searchsorted resolves the entire chunk.  The kernels run on
+    ``device``.  A ``mesh`` of more than one device (the reference's
+    sharded lookup) raises ``NotImplementedError``.
+    """
+    # a mesh's device count, as a JAX mesh gives it (unknown: many)
+    n_dev = getattr(getattr(mesh, "devices", None), "size", 2)
+    if mesh is not None and n_dev > 1:
+        raise NotImplementedError(
+            "plan_chunk over a doc mesh of more than one device (the "
+            "sharded anchor lookup, K13) is not ported yet (ROADMAP "
+            "queue 1, item 10)"
+        )
     mode = mode or plan_segment_mode()
     out = [None] * len(items)
     if mode == "off":
         return out
-    if mode != "np":
-        raise unported_mode_error(mode)
-    for i, (q, snap) in enumerate(items):
-        if q is not None and q.n >= MIN_RUN:
-            out[i] = plan_doc(q, mode=mode, snapshot=snap)
+    live = [
+        i for i, (q, _s) in enumerate(items)
+        if q is not None and q.n >= MIN_RUN
+    ]
+    if not live:
+        return out
+    if mode != "device" or len(live) == 1:
+        for i in live:
+            q, snap = items[i]
+            out[i] = plan_doc(q, mode=mode, snapshot=snap, device=device)
+        return out
+    _pc.note_segment_chunk()
+    # ---- one conflict scan over the doc-major concatenation ----------
+    qs = [items[i][0] for i in live]
+    ns = np.array([q.n for q in qs], np.int64)
+    doc_id = np.repeat(np.arange(len(qs), dtype=np.int64), ns)
+    l, r, g = kernels.plan_chunk_conflict_scan(
+        doc_id,
+        *(np.concatenate([getattr(q, name) for q in qs])
+          for name in ("client", "clock", "length", "o_cl", "o_ck",
+                       "r_cl", "r_ck")),
+        backend="jax", device=device,
+    )
+    offs = np.concatenate([[0], np.cumsum(ns)])
+    for k, i in enumerate(live):
+        q = qs[k]
+        plan = SegmentPlan()
+        sl = slice(int(offs[k]), int(offs[k + 1]))
+        plan.chain_l = l[sl].copy()
+        plan.chain_r = r[sl].copy()
+        plan.run_id = g[sl].copy()
+        plan.spans = _chain_spans(q, plan.chain_l, plan.chain_r, plan.run_id)
+        plan.hint_l = plan.hint_r = None
+        plan.snapshot_reused = False
+        out[i] = plan
+    # ---- one composed-key lookup for every doc still needing one -----
+    lookup = []
+    for k, i in enumerate(live):
+        q, snap = items[i]
+        if snap is None or _needed(q, out[i].chain_l, out[i].chain_r) \
+                <= SNAPSHOT_SKIP_MAX:
+            out[i].snapshot_reused = True
+            _pc.note_snapshot_reuse()
+            continue
+        lookup.append((k, i, snap()))
+    if not lookup:
+        return out
+    slot_base = 0
+    f_parts, qk_parts, meta = [], [], []
+    base_clock = 2
+    for _k, _i, (fs, fc, _fr, _rl, n_slots) in lookup:
+        if fc.shape[0]:
+            base_clock = max(base_clock, int(fc.max()) + 2)
+    for k, i, (fs, fc, fr, rl, n_slots) in lookup:
+        q = qs[k]
+        q_slot = np.concatenate([q.o_slot, q.r_slot])
+        q_ck = np.concatenate([q.o_ck, q.r_ck])
+        base_clock = max(
+            base_clock, (int(q_ck.max()) + 2) if q_ck.shape[0] else 2
+        )
+        f_parts.append((fs + slot_base, fc))
+        qk_parts.append(
+            (np.where(q_slot >= 0, q_slot + slot_base, -1), q_ck, q_slot)
+        )
+        meta.append((k, i, fr, rl, q_ck))
+        slot_base += n_slots
+    flat_gkey = np.concatenate(
+        [gs * base_clock + fc for gs, fc in f_parts]
+    ) if f_parts else np.empty(0, np.int64)
+    q_gkey = np.concatenate(
+        [np.where(gs >= 0, gs * base_clock + ck, -1)
+         for gs, ck, _ls in qk_parts]
+    )
+    cand_all = kernels.lookup_keys(flat_gkey, q_gkey, "jax", device)
+    # ---- split hints back per doc ------------------------------------
+    flat_slots_g = np.concatenate([gs for gs, _fc in f_parts])
+    flat_clocks = np.concatenate([fc for _gs, fc in f_parts])
+    qoff = 0
+    # per-doc row_len tables differ, so verify per doc over its block
+    foff = 0
+    for (k, i, fr, rl, _q_ck), (gs_q, q_ck, _ls) in zip(meta, qk_parts):
+        q = qs[k]
+        nq = 2 * q.n
+        nf = fr.shape[0]
+        # global candidate -> doc-local index; a query whose key sorts
+        # before this doc's flat block lands in a previous doc's region
+        # (cand < 0 after the shift) and verifies to NULL
+        cand = cand_all[qoff : qoff + nq] - foff
+        hint = _verify_hints(
+            cand,
+            gs_q,
+            q_ck,
+            flat_slots_g[foff : foff + nf],
+            flat_clocks[foff : foff + nf],
+            fr,
+            rl,
+        )
+        out[i].hint_l = hint[: q.n]
+        out[i].hint_r = hint[q.n :]
+        qoff += nq
+        foff += nf
     return out

@@ -29,6 +29,7 @@ from .obs.cost import CostLedger
 from .obs.slo import ConvergenceTracker
 from .obs.tsdb import maybe_attach_tsdb
 from .ops.engine import BatchEngine
+from .ops.kernels import KernelError
 from .persistence import (
     KIND_ACK,
     KIND_ADM,
@@ -838,6 +839,8 @@ class TpuProvider:
             try:
                 remote_sv = decoding.read_var_uint8_array(dec)
                 diff = self.engine.encode_state_as_update(doc, remote_sv)
+            except KernelError:
+                raise  # a dead kernel is no fault of the frame
             except Exception as e:
                 # truncated frame or garbage state vector: dead-letter
                 # and stay silent — the peer re-requests on reconnect
