@@ -10,7 +10,7 @@ script exits non-zero:
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and
    power limit;
-2. build: the native plan core (g++) and the nine CUDA sources (one
+2. build: the native plan core (g++) and the ten CUDA sources (one
    nvcc per source, all at once), with build seconds and each kernel's
    registers and spills;
 3. main path: a room server's fleet, ``BatchEngine(n_docs=4096)`` on the
@@ -88,7 +88,26 @@ script exits non-zero:
    each held against ``apply_lanes`` and ``batch_step_levels`` fed the
    same inputs replicated per doc, table for table, the two against each
    other on the live rows, and doc 0's text against a CPU ``Doc``;
-8. kernels: each kernel against its plain version on the card at its
+8. mesh path: the doc-sharded engine (``BatchEngine(4096, mesh=)``) on
+   a ``DocMesh`` of four shards that share the card (1024 docs a
+   shard), its plan cache shared with the earlier phases:
+   - the apply lane's flush 1, flush 2 (with compaction), the 16
+     warm-tier round trips and the 32 exports, each step's trimmed
+     tables equal to the main path's unmeshed engine's
+     (``sharded_apply_plan``, K14);
+   - the levels lane's two flushes, trimmed tables equal to the YATA
+     path's (``sharded_batch_step``, K15);
+   - ``state_vectors_batched`` over every doc equal to the unmeshed
+     engine's and 32 CPU Docs' (``sharded_state_vectors``, K16), and K16
+     on a 2 x 2 (docs x rows) mesh equal to unsharded K9 (the MAX fold);
+   - a 64-doc Python-mirror meshed engine (``YTPU_NO_NATIVE_PLAN=1``)
+     beside a CPU-mesh twin, both planning cold: traces, then a seeded
+     burst whose chunk plan runs the sharded lookup (K13); tables equal
+     the twin's;
+   every flush's ``last_metrics`` (the shards' device counters folded by
+   ``shard_fold`` on the card) equals the plain fold of the counters of
+   its dispatched inputs;
+9. kernels: each kernel against its plain version on the card at its
    path's largest shapes (exact), with times from CUDA events (``ms``:
    per call, launch gaps included; the YATA steps restore their tables
    before each timed launch and time it alone), device time from
@@ -99,7 +118,7 @@ script exits non-zero:
    (``dep_chain``), which limits them (``limited_by``), and the measured
    time per load; the planner kernels' rows add the pageable host copies
    around them (``h2d_ms``, ``d2h_ms``);
-9. the last line: ``{"ok": true, "device": {...}}``.
+10. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -239,8 +258,8 @@ def _clone(x):
         return x.clone()
     if isinstance(x, dict):
         return {k: _clone(v) for k, v in x.items()}
-    if isinstance(x, tuple):
-        return tuple(_clone(v) for v in x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(v) for v in x)
     return x
 
 
@@ -264,13 +283,14 @@ class Capture:
             self._orig[name] = orig
 
             def wrapped(*args, _orig=orig, _size=size,
-                        _key=(key[0] if key else lambda a, n=name: n)):
+                        _key=(key[0] if key else lambda a, n=name: n),
+                        **kwargs):
                 # the CPU twin's calls are not kept
                 if _first_tensor(args).device.type == self.device_type:
                     best = self.seen.get(_key(args))
                     if best is None or _size(args) > _size(best):
                         self.seen[_key(args)] = _clone(args)
-                return _orig(*args)
+                return _orig(*args, **kwargs)
 
             setattr(k, name, wrapped)
         return self
@@ -388,33 +408,19 @@ def main_path(device: str, n_docs: int, traces: list[bytes],
     trimmed.append(trim_tables(eng))
 
     # warm-tier round trip (deferred scatter_rows on the next read-back)
-    gen = random.Random(1)
-    hydrated = sorted(gen.sample(range(n_docs), min(N_HYDRATED, n_docs)))
+    hydrated, sample = warm_tier_sample(n_docs)
     for e in (eng, twin):
-        for i in hydrated:
-            mirror = e.export_doc_columns(i)
-            e.reset_doc(i)
-            e.hydrate_doc_columns(i, mirror)
+        round_trip(e, hydrated)
 
     # exports from the device tables, held against the CPU core: every
     # hydrated doc plus others drawn at random
-    others = [i for i in range(n_docs) if i not in set(hydrated)]
-    sample = sorted(hydrated + gen.sample(
-        others, min(len(others), N_EXPORTED - len(hydrated))
-    ))
     for i in sample:
-        doc = Y.Doc(gc=False)
-        for u in log_of[i]:
-            Y.apply_update(doc, u)
-        want = doc.get_text("text").to_string()
-        check(eng.text(i) == want, f"doc {i}: device text differs from the CPU Doc")
-        state = Y.merge_updates([eng.encode_state_as_update(i)])
-        check(state == Y.merge_updates([Y.encode_state_as_update(doc)]),
-              f"doc {i}: encoded state differs from the CPU Doc")
+        want = check_export(Y, eng, log_of[i], i, "device")
         check(twin.text(i) == want, f"doc {i}: twin text differs")
     if device == "cuda":
         torch.cuda.synchronize()
     assert_twins(eng, twin, "after hydration and export")
+    trimmed.append(trim_tables(eng))
     log(f"[main] {len(sample)} sampled docs: texts and encoded states equal "
         f"the CPU Doc ({len(hydrated)} hydrated)")
 
@@ -423,7 +429,44 @@ def main_path(device: str, n_docs: int, traces: list[bytes],
         "t_flush1_s": t1, "t_flush2_s": t2, "elements": elements,
         "flush1": m1, "flush2": m2, "n_compacted": n_compacted,
         "table_bytes": table_bytes, "trimmed": trimmed,
+        "log_of": log_of,
+        # the mesh phase's yardstick for its sharded state vectors
+        "state_vectors": eng.state_vectors_batched(list(range(n_docs))),
     }
+
+
+def warm_tier_sample(n_docs: int) -> tuple[list, list]:
+    """The docs that go through the warm tier (export_doc_columns,
+    reset_doc, hydrate_doc_columns) and the docs exported after: every
+    hydrated doc plus others drawn at random (seeded)."""
+    gen = random.Random(1)
+    hydrated = sorted(gen.sample(range(n_docs), min(N_HYDRATED, n_docs)))
+    others = [i for i in range(n_docs) if i not in set(hydrated)]
+    sample = sorted(hydrated + gen.sample(
+        others, min(len(others), N_EXPORTED - len(hydrated))
+    ))
+    return hydrated, sample
+
+
+def round_trip(eng, docs) -> None:
+    for i in docs:
+        mirror = eng.export_doc_columns(i)
+        eng.reset_doc(i)
+        eng.hydrate_doc_columns(i, mirror)
+
+
+def check_export(Y, eng, updates: list, i: int, what: str) -> str:
+    """Doc ``i``'s text and encoded state from ``eng``'s device tables
+    equal a CPU ``Doc`` fed ``updates``; returns the text."""
+    doc = Y.Doc(gc=False)
+    for u in updates:
+        Y.apply_update(doc, u)
+    want = doc.get_text("text").to_string()
+    check(eng.text(i) == want, f"doc {i}: {what} text differs from the CPU Doc")
+    state = Y.merge_updates([eng.encode_state_as_update(i)])
+    check(state == Y.merge_updates([Y.encode_state_as_update(doc)]),
+          f"doc {i}: {what} encoded state differs from the CPU Doc")
+    return want
 
 
 # -- phase 4 ----------------------------------------------------------------------
@@ -882,6 +925,7 @@ def yata_path(traces: list[bytes], edits: dict[int, list[bytes]],
         log(f"[yata] {len(sample)} sampled docs: levels texts and encoded "
             "states equal the CPU Doc")
         out["statics_bytes"] = int(sum(v.nbytes for v in eng._statics.values()))
+        out["trimmed"] = lev  # the mesh phase's yardstick for its levels lane
         del eng
 
         os.environ["YTPU_KERNEL"] = "seq"
@@ -1322,6 +1366,449 @@ def broadcast_path(trace: bytes, n_docs: int = N_BROADCAST_DOCS,
 # -- phase 8 ----------------------------------------------------------------------
 
 
+# -- phase 8: the doc-sharded mesh on the one card ---------------------------------
+
+
+N_SHARDS = 4  # shards of the mesh, all on the one card
+N_MESH_PLANNER_DOCS = 64
+MESH_LAUNCHED = ("sharded_apply_plan", "sharded_batch_step",
+                 "sharded_state_vectors", "sharded_lookup", "shard_fold")
+
+
+class MeshSpy:
+    """Wraps a meshed engine's ``_dispatch``.  For each "lanes" and
+    "levels" dispatch it computes the plain per-shard progress counters
+    from the dispatch's own inputs (new per lanes dispatch, summed over a
+    flush's level blocks, as the engine's are), and it keeps the largest
+    such dispatch's inputs with the tables as they were before it (for
+    the kernel phase)."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.plain = None
+        self.seen = {}
+        self._orig = eng._dispatch
+        eng._dispatch = self._spy
+
+    def _keep(self, kind: str, size: int, make) -> None:
+        best = self.seen.get(kind)
+        if best is None or size > best[0]:
+            self.seen[kind] = (size, make())
+
+    def _spy(self, kind, *args, slot=None):
+        eng = self.eng
+
+        def tables():
+            return [tuple(t.clone() for t in tabs) for tabs in eng._tabs]
+
+        if kind == "lanes":
+            host = slot.host.clone()
+            b = eng._b_loc
+            v = host.long()
+            self.plain = [
+                torch.stack([v[s, : 2 * b].sum(), v[s, 3 * b : 4 * b].sum()])
+                .to(torch.int32) for s in range(v.shape[0])
+            ]
+            self._keep("lanes", host.numel(),
+                       lambda: (tables(), host.to(eng.device), args[1]))
+        elif kind == "levels":
+            statics, splits, lv, dels, scratch = args
+            c = [torch.stack([(a[..., 0] >= 0).sum(), (d >= 0).sum()])
+                 .to(torch.int32).cpu() for a, d in zip(lv, dels)]
+            first = eng._counters is None  # the flush's first level block
+            self.plain = c if first else [
+                a + x for a, x in zip(self.plain, c)
+            ]
+            self._keep("levels", sum(a.numel() for a in lv), lambda: (
+                _clone(statics), tables(), _clone(splits), _clone(lv),
+                _clone(dels), _clone(scratch),
+            ))
+        return self._orig(kind, *args, slot=slot)
+
+    def check_metrics(self, what: str) -> dict:
+        """The engine's ``last_metrics`` (its device counters, folded on
+        the card) equal the plain fold of the plain counters."""
+        from yjs_tpu_torch.parallel import mesh as pm
+
+        got = self.eng.last_metrics
+        want = pm.fold_metrics(self.plain, plain=True)
+        check(got == want, f"{what}: last_metrics {got} != plain fold {want}")
+        return got
+
+
+def mesh_path(traces: list[bytes], edits: dict[int, list[bytes]],
+              main_fig: dict, levels_trimmed: list, smi: str,
+              device: str = "cuda", n_docs: int = N_DOCS) -> dict:
+    """The doc-sharded engine at the main path's width on a mesh of
+    ``N_SHARDS`` shards that share the card: the apply lane's two flushes,
+    the warm-tier round trips and the exports, each step's trimmed tables
+    equal to the main path's unmeshed engine's; the levels lane's two
+    flushes against the YATA path's; the batched state vectors (K16)
+    against the unmeshed engine's and a CPU ``Doc``; K16 on a 2 x 2
+    ("docs", "rows") mesh against unsharded K9; a small Python-mirror
+    meshed engine whose flush-2 chunk runs the sharded lookup (K13)
+    against a meshed CPU twin, both planning cold.  Every flush's
+    ``last_metrics`` equals the plain fold of its inputs' counters."""
+    import yjs_tpu_torch as Y
+    from yjs_tpu_torch.ops import BatchEngine, plan_cache
+    from yjs_tpu_torch.ops import kernels as K
+    from yjs_tpu_torch.ops.columns import DocMirror
+    from yjs_tpu_torch.ops.engine import _bucket
+    from yjs_tpu_torch.parallel import DocMesh
+    from yjs_tpu_torch.parallel import mesh as pm
+
+    card = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    mesh = DocMesh([card] * N_SHARDS)
+    trimmed = main_fig["trimmed"]
+    log_of = main_fig["log_of"]
+    held = [traces[i % len(traces)] for i in range(n_docs)]
+    out = {"mesh": mesh}
+    log(f"[mesh] {mesh}: {n_docs} docs, {n_docs // N_SHARDS} a shard; the "
+        "apply lane shares the process's plan cache with the earlier "
+        "phases (what this phase tests is the sharded apply, not planning)")
+
+    # the apply lane: flush 1, flush 2 (with compaction), warm tier, exports
+    eng = BatchEngine(n_docs, mesh=mesh)
+    check(eng.device == card, "the meshed engine is not on the card")
+    spy = MeshSpy(eng)
+    for i in range(n_docs):
+        eng.queue_update(i, held[i])
+    out["apply1"] = timed_flush(eng)
+    m1 = spy.check_metrics("apply flush 1")
+    assert_trimmed(eng, trimmed[0], "apply flush 1 against the unmeshed "
+                   "engine", "mesh")
+    for t, ups in edits.items():
+        for i in range(t, n_docs, len(traces)):
+            for u in ups:
+                eng.queue_update(i, u)
+    out["apply2"] = timed_flush(eng)
+    m2 = spy.check_metrics("apply flush 2")
+    check(len(eng.last_compaction or []) == main_fig["n_compacted"],
+          "the meshed flush 2 compacted another doc count")
+    assert_trimmed(eng, trimmed[1], "apply flush 2 against the unmeshed "
+                   "engine", "mesh")
+    hydrated, sample = warm_tier_sample(n_docs)
+    round_trip(eng, hydrated)
+    for i in sample:
+        check_export(Y, eng, log_of[i], i, "meshed")
+    assert_trimmed(eng, trimmed[2], "after hydration and export against the "
+                   "unmeshed engine", "mesh")
+    shards = eng.shard_tables()
+    check(len(shards) == N_SHARDS and all(
+        t.device == card and t.shape[0] == n_docs // N_SHARDS
+        for tabs, _st in shards for t in tabs
+    ), "a shard's tables are not its doc block on the card")
+    log(f"[mesh] apply flush 1 {out['apply1']:.3f}s, flush 2 "
+        f"{out['apply2']:.3f}s ({smi}); last_metrics {m1} / {m2} equal the "
+        f"plain fold; {len(sample)} sampled docs' texts and encoded states "
+        f"equal the CPU Doc ({len(hydrated)} hydrated)")
+
+    # K16 on the doc axis: the batched state vectors of every doc
+    docs = list(range(n_docs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svs = eng.state_vectors_batched(docs)
+    out["t_state_vectors"] = time.perf_counter() - t0
+    check(svs == main_fig["state_vectors"],
+          "meshed state vectors differ from the unmeshed engine's")
+    for i in sample:
+        doc = Y.Doc(gc=False)
+        for u in log_of[i]:
+            Y.apply_update(doc, u)
+        want = {c: v for c, v in Y.get_state_vector(doc.store).items() if v}
+        check(svs[i] == want, f"doc {i}: meshed state vector differs from "
+              "the CPU Doc")
+    row_slot, _clock, row_end = eng._sync_columns(docs)
+    n_slots = _bucket(  # as the engine buckets it
+        max(1, max(len(eng.mirrors[i].client_of_slot) for i in docs)), 4)
+    if row_slot.shape[1] % 2:  # two row shards: an even row count
+        row_slot = np.pad(row_slot, ((0, 0), (0, 1)), constant_values=-1)
+        row_end = np.pad(row_end, ((0, 0), (0, 1)))
+    out["sv_cols"] = (row_slot, row_end, n_slots)
+    mesh2 = DocMesh(np.full((2, 2), card, dtype=object), ("docs", "rows"))
+    out["mesh2"] = mesh2
+    got2 = pm.sharded_state_vectors(mesh2, n_slots, "docs", "rows")(
+        row_slot, row_end)
+    one = K.state_vector_kernel(pm.put_host(row_slot, card),
+                                pm.put_host(row_end, card), n_slots)
+    check(torch.equal(got2, one), "the 2 x 2 sharded state vectors differ "
+          "from unsharded K9")
+    log(f"[mesh] state_vectors_batched over {n_docs} docs "
+        f"{out['t_state_vectors']:.4f}s equals the unmeshed engine's and "
+        f"{len(sample)} CPU Docs'; on a 2 x 2 (docs x rows) mesh over "
+        f"[{row_slot.shape[0]}, {row_slot.shape[1]}] sync columns "
+        f"({n_slots} slots) K16 equals unsharded K9")
+    out["lanes"] = spy.seen["lanes"][1]
+    del eng, spy
+
+    # the levels lane on the same mesh
+    saved = {k: os.environ.get(k) for k in
+             ("YTPU_KERNEL", "YTPU_NO_NATIVE_PLAN", "YTPU_PLAN_SEGMENT")}
+    try:
+        os.environ["YTPU_KERNEL"] = "levels"
+        eng = BatchEngine(n_docs, mesh=mesh)
+        spy = MeshSpy(eng)
+        for i in range(n_docs):
+            eng.queue_update(i, held[i])
+        out["levels1"] = timed_flush(eng)
+        l1 = spy.check_metrics("levels flush 1")
+        assert_trimmed(eng, levels_trimmed[0], "levels flush 1 against the "
+                       "YATA path's", "mesh")
+        for t, ups in edits.items():
+            for i in range(t, n_docs, len(traces)):
+                for u in ups:
+                    eng.queue_update(i, u)
+        out["levels2"] = timed_flush(eng)
+        l2 = spy.check_metrics("levels flush 2")
+        assert_trimmed(eng, levels_trimmed[1], "levels flush 2 against the "
+                       "YATA path's", "mesh")
+        log(f"[mesh] levels flush 1 {out['levels1']:.3f}s, flush 2 "
+            f"{out['levels2']:.3f}s ({smi}); last_metrics {l1} / {l2} equal "
+            "the plain fold")
+        out["levels"] = spy.seen["levels"][1]
+        del eng, spy
+        restore_env("YTPU_KERNEL", saved["YTPU_KERNEL"])
+
+        # a Python-mirror meshed engine: the chunk planner's sharded lookup
+        os.environ["YTPU_NO_NATIVE_PLAN"] = "1"
+        os.environ.pop("YTPU_PLAN_SEGMENT", None)
+        n = N_MESH_PLANNER_DOCS
+        t0 = time.perf_counter()
+        bursts = make_bursts([[traces[i]] for i in range(n)], 700)
+        out["t_bursts"] = time.perf_counter() - t0
+        eng = BatchEngine(n, mesh=mesh)
+        twin = BatchEngine(n, mesh=DocMesh([torch.device("cpu")] * N_SHARDS))
+        check(all(type(m) is DocMirror for m in eng.mirrors),
+              "the meshed planner engine does not run on Python mirrors")
+        spy = MeshSpy(eng)
+        for k, ups in enumerate(([[traces[i]] for i in range(n)], bursts), 1):
+            for e in (eng, twin):
+                for i, us in enumerate(ups):
+                    for u in us:
+                        e.queue_update(i, u)
+            before = K.launches["sharded_lookup"]
+            plan_cache.reset_cache()  # each engine plans cold
+            t = timed_flush(eng)
+            plan_cache.reset_cache()
+            twin.flush()
+            lookups = K.launches["sharded_lookup"] - before
+            m = eng.last_flush_metrics
+            check(m["n_demoted"] == 0 and m["n_rolled_back"] == 0,
+                  f"planner flush {k} demoted or rolled back a doc")
+            check(m["plan_cache_hits"] == 0 and
+                  twin.last_flush_metrics["plan_cache_hits"] == 0,
+                  f"planner flush {k} replayed a cached plan")
+            check(eng.last_metrics == twin.last_metrics,
+                  f"planner flush {k}: last_metrics differ from the twin's")
+            spy.check_metrics(f"planner flush {k}")
+            assert_twins(eng, twin, f"planner flush {k} ({n} docs, "
+                         f"{m['plan_threads']} co-planned, {lookups} "
+                         f"sharded lookups, {t:.3f}s)", "mesh")
+        check(lookups >= N_SHARDS or card.type != "cuda",
+              "flush 2's chunk did not run the sharded lookup on every shard")
+        for i in range(0, n, n // 8):
+            check_export(Y, eng, [traces[i], *bursts[i]], i, "meshed planner")
+        log(f"[mesh] planner engine: bursts {out['t_bursts']:.1f}s (set-up); "
+            "8 sampled docs' texts and encoded states equal the CPU Doc")
+        del eng, twin, spy
+        plan_cache.reset_cache()
+    finally:
+        for k, v in saved.items():
+            restore_env(k, v)
+    return out
+
+
+def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
+    """K14, K15, K16, K13 and the fold against their plain versions on the
+    card, at the mesh phase's largest inputs (K13 at the planner path's
+    flush-2 shapes, split over the shards)."""
+    from yjs_tpu_torch.ops import kernels as K
+    from yjs_tpu_torch.parallel import mesh as pm
+
+    mesh = mfig["mesh"]
+    rows = []
+
+    def fresh(tables):
+        return [tuple(t.clone() for t in tabs) for tabs in tables]
+
+    # K14 at the apply lane's flush-1 lanes
+    tables, lanes, key = mfig["lanes"]
+    parts = list(lanes)
+    fn = pm.sharded_apply_plan(mesh, "docs", *key)
+    pfn = pm.sharded_apply_plan(mesh, "docs", *key, plain=True)
+    got, gc = fn(fresh(tables), parts)
+    ref, rc = pfn(fresh(tables), parts)
+    err = max(max_abs_err(g, r) for gs, rs in zip(got, ref)
+              for g, r in zip(gs, rs))
+    err = max(err, max(max_abs_err(g, r) for g, r in zip(gc, rc)))
+    base = fresh(tables)
+    b_loc, n1 = tables[0][0].shape
+    s1 = tables[0][2].shape[1]
+    nbytes = sum(apply_lanes_bytes(p, b_loc, key, n1, s1) + 8 for p in parts)
+    rows.append({
+        "name": "sharded_apply_plan", "route": "cuda",
+        "source": "yjs_tpu_torch/csrc/apply_lanes.cu",
+        "replaces": "yjs_tpu/parallel/mesh.py:134",
+        "shape": f"shards={len(parts)} B_loc={b_loc} N+1={n1} S+1={s1} "
+                 f"lanes={tuple(lanes.shape)} {lanes.dtype}",
+        "launches": m_launches["sharded_apply_plan"], "max_abs_err": err,
+        "ms": cuda_ms(lambda: fn(base, parts)),
+        "device_ms": device_ms(lambda: fn(base, parts)),
+        "plain_ms": cuda_ms(lambda: pfn(base, parts), 5),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,
+    })
+
+    # K15 at the levels lane's largest level block
+    statics, tables, splits, lv, dels, scratch = mfig["levels"]
+    fn = pm.sharded_batch_step(mesh, "docs")
+    got, gc = fn(statics, fresh(tables), splits, lv, dels, scratch)
+    b_loc, n1 = tables[0][0].shape
+    stats = [K.new_yata_stats(b_loc, t[0].device) for t in tables]
+    ref = fresh(tables)
+    rc = [torch.zeros(2, dtype=torch.int32, device=t[0].device)
+          for t in tables]
+
+    def plain():
+        for s in range(len(ref)):
+            K.batch_step_levels_plain(statics[s], ref[s], splits[s], lv[s],
+                                      dels[s], scratch[s], stats=stats[s],
+                                      counter=rc[s])
+
+    plain_ms = once_ms(plain)
+    err = max(max_abs_err(g, r) for gs, rs in zip(got, ref)
+              for g, r in zip(gs, rs))
+    err = max(err, max(max_abs_err(g, r) for g, r in zip(gc, rc)))
+    work = fresh(tables)
+
+    def restore():
+        for w, o in zip(work, tables):
+            for a, b in zip(w, o):
+                a.copy_(b)
+
+    def launch():
+        fn(statics, work, splits, lv, dels, scratch)
+
+    ms = cuda_ms_restored(launch, restore)
+    dev_ms = device_ms(launch, YATA_TIMED_LAUNCHES, restore)
+    nbytes = sum(
+        yata_bytes("batch_step_levels",
+                   (statics[s], tables[s], splits[s], lv[s], dels[s],
+                    scratch[s]), stats[s]) + 8
+        for s in range(len(tables))
+    )
+    chain = max(int(st["chain"].max()) for st in stats)
+    rows.append({
+        "name": "sharded_batch_step", "route": "cuda",
+        "source": "yjs_tpu_torch/csrc/yata.cu",
+        "replaces": "yjs_tpu/parallel/mesh.py:101",
+        "shape": f"shards={len(tables)} B_loc={b_loc} N+1={n1} "
+                 f"schedule={tuple(lv[0].shape)} a shard",
+        "launches": m_launches["sharded_batch_step"], "max_abs_err": err,
+        "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "limited_by": "dep_chain", "dep_chain": chain,
+        "ns_per_dep_load": (dev_ms or ms) * 1e6 / max(1, chain),
+    })
+
+    # K16 over the 4096 docs' sync columns, the doc axis over the shards
+    row_slot, row_end, n_slots = mfig["sv_cols"]
+    bs = pm.state_vector_blocks(mesh, row_slot)
+    be = pm.state_vector_blocks(mesh, row_end)
+    fn = pm.sharded_state_vectors(mesh, n_slots)
+    pfn = pm.sharded_state_vectors(mesh, n_slots, plain=True)
+    got = fn(bs, be)
+    ref = pfn(bs, be)
+    err = max_abs_err(got, ref)
+    slot_d = pm.put_host(row_slot, got.device)
+    end_d = pm.put_host(row_end, got.device)
+    check(torch.equal(got, K.state_vector_kernel(slot_d, end_d, n_slots)),
+          "K16 differs from unsharded K9")
+    b, n = row_slot.shape
+    seg = torch.where((slot_d >= 0) & (slot_d < n_slots), slot_d,
+                      torch.full_like(slot_d, n_slots)).long()
+
+    def library():
+        return torch.zeros((b, n_slots + 1), dtype=torch.int32,
+                           device=slot_d.device).scatter_reduce_(
+            1, seg, end_d, "amax", include_self=True)
+
+    check(torch.equal(library()[:, :n_slots], ref),
+          "scatter_reduce_ disagrees with K16's plain version")
+    rows.append({
+        "name": "sharded_state_vectors", "route": "cuda",
+        "source": "yjs_tpu_torch/csrc/state_vector.cu",
+        "replaces": "yjs_tpu/parallel/mesh.py:168",
+        "shape": f"shards={len(bs)} B={b} N={n} n_slots={n_slots}",
+        "launches": m_launches["sharded_state_vectors"], "max_abs_err": err,
+        "ms": cuda_ms(lambda: fn(bs, be)),
+        "device_ms": device_ms(lambda: fn(bs, be)),
+        "plain_ms": cuda_ms(lambda: pfn(bs, be), 5),
+        "bound_ms": (row_slot.nbytes + row_end.nbytes + 4 * b * n_slots)
+        / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": cuda_ms(library),
+    })
+
+    # the fold at the 2 x 2 mesh's row partials of one doc block (pmax)
+    blocks = pm.state_vector_blocks(mfig["mesh2"], row_slot, "docs", "rows")
+    ends = pm.state_vector_blocks(mfig["mesh2"], row_end, "docs", "rows")
+    partials = [K.state_vector_kernel(s, e, n_slots)
+                for s, e in zip(blocks[0], ends[0])]
+    got = K.shard_fold(partials, "max")
+    ref = K.shard_fold_plain(partials, "max")
+    check(torch.equal(torch.maximum(*partials), ref),
+          "torch.maximum disagrees with the plain fold")
+    rows.append({
+        "name": "shard_fold", "route": "cuda",
+        "source": "yjs_tpu_torch/csrc/shard_fold.cu",
+        "replaces": "yjs_tpu/parallel/mesh.py:117",
+        "shape": f"max of {len(partials)} x {tuple(partials[0].shape)} int32 "
+                 "(the rows axis' pmax, :176; the counters' psum is 2 "
+                 "int32 a shard)",
+        "launches": m_launches["shard_fold"],
+        "max_abs_err": max_abs_err(got, ref),
+        "ms": cuda_ms(lambda: K.shard_fold(partials, "max")),
+        "device_ms": device_ms(lambda: K.shard_fold(partials, "max")),
+        "plain_ms": cuda_ms(lambda: K.shard_fold_plain(partials, "max")),
+        "bound_ms": (len(partials) + 1) * partials[0].nbytes
+        / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": cuda_ms(lambda: torch.maximum(*partials)),
+    })
+
+    # K13 at the planner path's flush-2 lookup, its queries over the shards
+    flat, q = plseen["anchor_lookup"]
+    hays = [flat] * N_SHARDS  # one card: one copy of the haystack
+    qs = list(q.chunk(N_SHARDS))
+    got = K.sharded_anchor_lookup(hays, qs)
+    ref = K.sharded_anchor_lookup_plain(hays, qs)
+    err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+    check(torch.equal(torch.cat(got), K.anchor_lookup(flat, q)),
+          "K13 differs from K11 on the whole query")
+
+    def library():
+        return [torch.searchsorted(flat, p, right=True) - 1 for p in qs]
+
+    check(all(torch.equal(a, b) for a, b in zip(library(), ref)),
+          "torch.searchsorted disagrees with K13's plain version")
+    rows.append({
+        "name": "sharded_lookup", "route": "cuda",
+        "source": "yjs_tpu_torch/csrc/anchor_lookup.cu",
+        "replaces": "yjs_tpu/ops/segment_planner.py:286",
+        "shape": f"shards={N_SHARDS} haystack={flat.numel()} "
+                 f"queries={q.numel()} int64",
+        "launches": m_launches["sharded_lookup"], "max_abs_err": err,
+        "ms": cuda_ms(lambda: K.sharded_anchor_lookup(hays, qs)),
+        "device_ms": device_ms(lambda: K.sharded_anchor_lookup(hays, qs)),
+        "plain_ms": cuda_ms(lambda: K.sharded_anchor_lookup_plain(hays, qs)),
+        "bound_ms": lookup_bytes(flat, q) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": cuda_ms(library),
+    })
+    for row in rows:
+        row["path"] = "mesh"
+    return rows
+
+
 def cuda_ms(fn, n: int = TIMED_LAUNCHES) -> float:
     """Mean ms of ``fn()`` over ``n`` calls, from CUDA events, after a
     warm-up call."""
@@ -1753,7 +2240,7 @@ def broadcast_rows(bfig: dict, b_launches: dict) -> list[dict]:
 def kernel_phase(seen: dict, launches: dict, pseen: dict,
                  plaunches: dict, yseen: dict, ylaunches: dict,
                  plseen: dict, pl_launches: dict, bfig: dict,
-                 b_launches: dict) -> list[dict]:
+                 b_launches: dict, mfig: dict, m_launches: dict) -> list[dict]:
     """Each kernel against its plain version on the largest input its
     path gave it (tables as they were before that call); ``launches`` and
     ``plaunches`` are the main and the provider path's counts."""
@@ -1905,6 +2392,7 @@ def kernel_phase(seen: dict, launches: dict, pseen: dict,
     rows.extend(yata_rows(yseen, ylaunches))
     rows.extend(planner_rows(plseen, pl_launches))
     rows.extend(broadcast_rows(bfig, b_launches))
+    rows.extend(mesh_rows(mfig, m_launches, plseen))
     torch.cuda.synchronize()
     # comparison and timing launches are not the main path's
     K.launches.update(saved)
@@ -2019,7 +2507,6 @@ def main() -> int:
     check(pl_launches["anchor_lookup"] >= 1, "the anchor lookup never launched")
     check(pl_launches["conflict_scan"] >= 1,
           "the per-doc conflict scan never launched")
-    del figures["trimmed"]
 
     # broadcast replay: one trace over 4096 docs
     K.reset_launches()
@@ -2030,8 +2517,21 @@ def main() -> int:
     log(f"[broadcast] wall {time.perf_counter() - t0:.1f}s; launches {b_launches}")
     for name, _size in BROADCAST_KERNELS:
         check(b_launches[name] == 1, f"{name} did not launch once")
+
+    # the doc-sharded mesh: four shards on the one card
+    K.reset_launches()
+    t0 = time.perf_counter()
+    mfig = mesh_path(traces, edits, figures, yfig.pop("trimmed"), dev["smi"])
+    torch.cuda.synchronize()
+    m_launches = dict(K.launches)
+    log(f"[mesh] wall {time.perf_counter() - t0:.1f}s; launches {m_launches}")
+    for name in MESH_LAUNCHED:
+        check(m_launches[name] > 0, f"{name} never launched on the mesh path")
+    for name in ("trimmed", "log_of", "state_vectors"):
+        del figures[name]
     rows = kernel_phase(cap.seen, launches, pcap.seen, plaunches, ycap.seen,
-                        ylaunches, plcap.seen, pl_launches, bfig, b_launches)
+                        ylaunches, plcap.seen, pl_launches, bfig, b_launches,
+                        mfig, m_launches)
     log(json.dumps({"kernels": rows}))
     log(dev["smi"])
     print(json.dumps({"ok": True, "device": {

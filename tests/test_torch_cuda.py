@@ -1064,3 +1064,185 @@ def test_planner_engine_on_card_matches_cpu_twin(cuda_device, shape,
         for u in ups:
             Y.apply_update(doc, u)
         assert eng.text(i) == doc.get_text("text").to_string()
+
+
+# -- the doc mesh: the fold and K13-K16, four shards sharing the card ------------
+
+
+def _mesh_of(device, n: int = 4, rows: int = 0):
+    from yjs_tpu_torch.parallel import DocMesh
+
+    if rows:
+        return DocMesh(np.full((n, rows), device, dtype=object),
+                       ("docs", "rows"))
+    return DocMesh([device] * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("n_parts", [1, 4, 64, 130])
+def test_shard_fold_kernel_matches_plain(cuda_device, n_parts, op):
+    """SUM wraps in int32; more than 64 partials fold in rounds."""
+    g = np.random.default_rng(n_parts)
+    parts = [torch.from_numpy(
+        g.integers(-(2**31), 2**31, size=(257, 3)).astype(np.int32)
+    ).to(cuda_device) for _ in range(n_parts)]
+    ref = kernels.shard_fold_plain(parts, op)
+    before = kernels.launches["shard_fold"]
+    got = kernels.shard_fold(parts, op)
+    torch.cuda.synchronize()
+    rounds = 1 + max(0, -(-(n_parts - 64) // 63))
+    assert kernels.launches["shard_fold"] == before + rounds
+    assert got.device == parts[0].device and torch.equal(ref, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("shape", APPLY_SHAPES)
+def test_apply_lanes_progress_counter_matches_plain(cuda_device, shape, dtype):
+    """K14's per-shard counters: K1's count scan adds the dense plus
+    sparse and the delete totals into a [2] counter, twice over."""
+    b, n1, s1 = shape
+    tables, lanes, widths = apply_case(9 + b, b, n1, s1, dtype)
+    lanes_d = torch.from_numpy(lanes).to(cuda_device)
+    ref = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    got = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    for _ in range(2):
+        want = kernels.apply_lanes_plain(_torch(tables, cuda_device), lanes_d,
+                                         *widths, counter=ref)
+        out = kernels.apply_lanes(_torch(tables, cuda_device), lanes_d,
+                                  *widths, counter=got)
+        torch.cuda.synchronize()
+        for r, o in zip(want, out):
+            assert torch.equal(r, o)
+    assert torch.equal(ref, got) and int(got[0]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", YATA_SHAPES[:3])
+def test_levels_progress_counter_matches_plain(cuda_device, hang_guard, shape):
+    """K15's per-shard counters from K6's block reduce, accumulated over
+    the stages; K7b (no counter) is unchanged by them."""
+    b, w_pad, cap_min, clients = shape
+    cap, s1, stages = yata_case(51 + b, b, w_pad=w_pad, cap_min=cap_min,
+                                clients=clients)
+
+    def to(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+
+    ref_t = _torch(yata_tables(b, cap, s1), cuda_device)
+    got_t = _torch(yata_tables(b, cap, s1), cuda_device)
+    ref_c = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    got_c = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    for st in stages:
+        statics = {k: to(st[k]) for k in kernels.STATIC_KEYS}
+        args = [to(st[k]) for k in ("splits", "lv", "dels", "scratch")]
+        kernels.batch_step_levels_plain(statics, ref_t, *args, counter=ref_c)
+        kernels.batch_step_levels(statics, got_t, *args, counter=got_c)
+        torch.cuda.synchronize()
+        for r, o in zip(ref_t, got_t):
+            assert torch.equal(r, o)
+    assert torch.equal(ref_c, got_c) and int(got_c[0]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [0, 2])
+@pytest.mark.parametrize("wide", [False, True])
+def test_sharded_state_vectors_kernel_matches_plain(cuda_device, rows, wide):
+    """K16 on four doc shards of the card (and 4 x 2 with a rows axis,
+    the MAX fold joining the row shards) against its plain version and
+    unsharded K9 (with slots past the shared-memory limit when wide)."""
+    from yjs_tpu_torch.parallel import mesh as pm
+
+    n_slots = 13000 if wide else 5
+    row_slot, _clock, row_end, _sv = sync_case(61, 64, 300, n_slots)
+    mesh = _mesh_of(cuda_device, 4, rows)
+    axes = ("docs", "rows") if rows else ("docs", None)
+    before = dict(kernels.launches)
+    got = pm.sharded_state_vectors(mesh, n_slots, *axes)(row_slot, row_end)
+    torch.cuda.synchronize()
+    assert got.is_cuda
+    ref = pm.sharded_state_vectors(mesh, n_slots, *axes, plain=True)(
+        row_slot, row_end)
+    one = kernels.state_vector_kernel_plain(
+        *_torch((row_slot, row_end), cuda_device), n_slots)
+    assert torch.equal(ref, got) and torch.equal(one, got)
+    assert (kernels.launches["sharded_state_vectors"]
+            == before["sharded_state_vectors"] + 4 * max(1, rows))
+    assert (kernels.launches["shard_fold"]
+            == before["shard_fold"] + (4 if rows else 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 4, 3])
+def test_sharded_lookup_kernel_matches_plain(cuda_device, n_shards):
+    from yjs_tpu_torch.ops import segment_planner as sp
+
+    flat, q = lookup_case(71, 3000, 700, wide=True, pad=False)
+    fk = kernels._pad_pow2(flat, kernels._bucket_pow2(len(flat)), INT64_MAX)
+    qb = kernels._bucket_pow2(len(q))
+    qb = -(-qb // n_shards) * n_shards
+    qk = kernels._pad_pow2(q, qb, -1)
+    devs = [cuda_device] * n_shards
+    before = kernels.launches["sharded_lookup"]
+    got = sp._sharded_lookup(devs, fk, qk)
+    assert kernels.launches["sharded_lookup"] == before + n_shards
+    ref = np.concatenate([c.numpy() for c in kernels.sharded_anchor_lookup_plain(
+        [torch.from_numpy(fk)] * n_shards,
+        list(torch.from_numpy(qk).chunk(n_shards)))])
+    np.testing.assert_array_equal(ref, got)
+    np.testing.assert_array_equal(
+        got[: len(q)], np.searchsorted(flat, q, side="right") - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane,mirror", [("apply", "native"),
+                                         ("levels", "native"),
+                                         ("seq", "native"),
+                                         ("apply", "python")])
+def test_meshed_engine_on_card_matches_cpu_mesh(cuda_device, hang_guard, lane,
+                                                mirror, monkeypatch):
+    """A 4-shard engine on the card against the same engine on a CPU
+    mesh: tables (and statics) after every flush, ``last_metrics`` (the
+    card's folded by the fold kernel), batched state vectors, texts."""
+    if lane != "apply":
+        monkeypatch.setenv("YTPU_KERNEL", lane)
+    if mirror == "python":
+        monkeypatch.setenv("YTPU_NO_NATIVE_PLAN", "1")
+        monkeypatch.setenv("YTPU_PLAN_CACHE", "0")
+    monkeypatch.setenv("YTPU_EXPORT_DEVICE", "1")
+    per_doc = [planner_corpus(("interleaved", "storm")[i % 2], 80 + i, 60)
+               for i in range(8)]
+    eng = BatchEngine(8, mesh=_mesh_of(cuda_device), compact_min_rows=24)
+    twin = BatchEngine(8, mesh=_mesh_of(torch.device("cpu")),
+                       compact_min_rows=24)
+    assert eng.device.type == "cuda"
+    before = dict(kernels.launches)
+    for j in range(60):
+        for e in (eng, twin):
+            for i, ups in enumerate(per_doc):
+                e.queue_update(i, ups[j])
+        if j % 6 == 5:
+            eng.flush()
+            twin.flush()
+            torch.cuda.synchronize()
+            assert eng.last_metrics == twin.last_metrics
+            for a, b in zip((eng._right, eng._deleted, eng._starts),
+                            (twin._right, twin._deleted, twin._starts)):
+                assert torch.equal(a.cpu(), b)
+            if lane != "apply":
+                for k in kernels.STATIC_KEYS:
+                    assert torch.equal(eng._statics[k].cpu(), twin._statics[k])
+    for tabs, _st in eng.shard_tables():
+        assert all(t.device.type == "cuda" for t in tabs)
+    docs = list(range(8))
+    assert eng.state_vectors_batched(docs) == twin.state_vectors_batched(docs)
+    assert [eng.text(i) for i in docs] == [twin.text(i) for i in docs]
+    grew = {k: kernels.launches[k] - before[k] for k in before}
+    want = {"apply": "sharded_apply_plan", "levels": "sharded_batch_step",
+            "seq": "batch_step"}[lane]
+    assert grew[want] > 0 and grew["sharded_state_vectors"] == 4
+    if lane != "seq":
+        assert grew["shard_fold"] > 0
+    if mirror == "python":
+        assert grew["sharded_lookup"] > 0

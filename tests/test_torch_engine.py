@@ -231,20 +231,32 @@ def test_python_mirror_device_segment_mode_raises(monkeypatch):
 
 
 def test_unported_paths_raise(monkeypatch):
-    """The mesh is not ported and raises; the on-device YATA lane is
-    ported: a levels flush runs and gives the apply lane's text."""
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TorchEngine(2, mesh=object(), device="cpu")
+    """Once unported, now ported: the on-device YATA lane and the doc
+    mesh.  A levels flush, and apply and levels flushes of an engine
+    sharded over a two-shard CPU mesh, give the apply lane's text and
+    trimmed tables; the meshed engine alone reports progress counters."""
+    from yjs_tpu_torch.parallel import doc_mesh
+
     ups = make_trace("storm", seed=2, n_ops=10)
-    texts = {}
+    texts, tables, metrics = {}, {}, {}
     for mode in ("levels", "apply"):
         monkeypatch.setenv("YTPU_KERNEL", mode)
-        eng = TorchEngine(2, device="cpu")
-        for u in ups:
-            eng.queue_update(0, u)
-        eng.flush()
-        texts[mode] = eng.text(0)
-    assert texts["levels"] == texts["apply"] != ""
+        for shards in (None, 2):
+            mesh = None if shards is None else doc_mesh(2, backend="cpu")
+            eng = TorchEngine(2, mesh=mesh, device="cpu")
+            for u in ups:
+                eng.queue_update(0, u)
+            eng.flush()
+            texts[mode, shards] = eng.text(0)
+            tables[mode, shards] = trim_tables(eng)[0]
+            metrics[mode, shards] = eng.last_metrics
+    assert len(set(texts.values())) == 1 and texts["apply", None] != ""
+    for key, tabs in tables.items():
+        for a, b in zip(tables["apply", None], tabs):
+            np.testing.assert_array_equal(a, b)
+    assert metrics["apply", None] is metrics["levels", None] is None
+    assert metrics["apply", 2]["integrated"] > 0
+    assert metrics["levels", 2]["integrated"] > 0
 
 
 def test_default_device_is_cuda():

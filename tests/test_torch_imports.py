@@ -36,9 +36,14 @@ import yjs_tpu_torch, yjs_tpu_torch.ops, yjs_tpu_torch.ops.kernels
 import yjs_tpu_torch.ops.carry, yjs_tpu_torch.ops._cuda
 import yjs_tpu_torch.obs.prof, yjs_tpu_torch.obs.capacity
 import yjs_tpu_torch.persistence, yjs_tpu_torch.sync, yjs_tpu_torch.tiering
+import yjs_tpu_torch.parallel, yjs_tpu_torch.parallel.mesh
 from yjs_tpu_torch.ops import BatchEngine
+from yjs_tpu_torch.parallel import doc_mesh
 from yjs_tpu_torch.provider import TpuProvider
 eng = BatchEngine(2, device="cpu")
+meshed = BatchEngine(2, mesh=doc_mesh(2, backend="cpu"))
+meshed.queue_update(1, yjs_tpu_torch.encode_state_as_update(yjs_tpu_torch.Doc()))
+meshed.flush()
 prov = TpuProvider(2, device="cpu")
 prov.receive_update("r", yjs_tpu_torch.encode_state_as_update(yjs_tpu_torch.Doc()))
 prov.flush()

@@ -1,0 +1,571 @@
+"""The port's doc-sharded mesh against the JAX package's, on the CPU.
+
+The JAX side runs on the virtual 8-device host mesh
+(``doc_mesh(8, backend="cpu")``, from ``tests/conftest.py``'s XLA flag)
+with ``YTPU_FLUSH_PIPELINE=0`` (ROADMAP caveat R1); the port's side on
+``yjs_tpu_torch.parallel.doc_mesh(8, backend="cpu")``: eight shards whose
+tensors all lie on the CPU, where the kernel wrappers take their plain
+versions.  Inputs are made from seeds with numpy; everything compared is
+integer, so the tolerance is 0.
+
+- the sharded kernels as functions: ``sharded_apply_plan`` (K14),
+  ``sharded_batch_step`` (K15), ``sharded_state_vectors`` (K16, on a 1-D
+  mesh and on a 4 x 2 ``("docs", "rows")`` mesh) and the planner's
+  sharded anchor lookup (K13), each with its progress counters folded;
+- the port's counterparts of the cases of ``tests/test_parallel.py``;
+- meshed apply, levels and seq engines on native and Python mirrors,
+  flush by flush against the JAX meshed engine: trimmed tables (and
+  statics), texts, encoded states, ``last_metrics`` and flush-metric key
+  sets;
+- the mesh's errors and the single-device fallback of ``shard_meshes``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh
+
+import yjs_tpu as Y
+import yjs_tpu_torch as T
+from test_flush_pipeline import SHAPES, make_trace
+from test_parallel import build_docs
+from test_torch_cuda import planner_corpus, yata_case, yata_tables
+from yjs_tpu.obs import FLUSH_METRICS_SCHEMA as JAX_SCHEMA
+from yjs_tpu.ops import BatchEngine as JaxEngine
+from yjs_tpu.ops import plan_cache as jax_plan_cache
+from yjs_tpu.ops import segment_planner as jsp
+from yjs_tpu.parallel import mesh as jmesh
+from yjs_tpu_torch.obs import FLUSH_METRICS_SCHEMA
+from yjs_tpu_torch.ops import BatchEngine as TorchEngine
+from yjs_tpu_torch.ops import kernels as tk
+from yjs_tpu_torch.ops import plan_cache as torch_plan_cache
+from yjs_tpu_torch.ops import segment_planner as tsp
+from yjs_tpu_torch.ops.carry import trim_tables
+from yjs_tpu_torch.parallel import DocMesh, doc_mesh, shard_meshes
+from yjs_tpu_torch.parallel import mesh as tmesh
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True)
+def _sync_and_fresh(monkeypatch):
+    monkeypatch.setenv("YTPU_FLUSH_PIPELINE", "0")
+    jax_plan_cache.reset_cache()
+    torch_plan_cache.reset_cache()
+    yield
+    jax_plan_cache.reset_cache()
+    torch_plan_cache.reset_cache()
+
+
+@pytest.fixture(scope="module")
+def jmesh8():
+    if len(jax.devices("cpu")) < 8:
+        pytest.skip("needs 8 virtual cpu devices")
+    return jmesh.doc_mesh(8, backend="cpu")
+
+
+@pytest.fixture(scope="module")
+def mesh8():
+    return doc_mesh(8, backend="cpu")
+
+
+def shard_tables(mesh, *arrays):
+    """Per-shard copies of ``[B, ...]`` numpy tables on the mesh's doc
+    devices (the shape a meshed engine keeps them in)."""
+    devs = mesh.axis_devices()
+    blocks = [tmesh.shard_rows(np.array(a, copy=True), devs) for a in arrays]
+    return [list(t) for t in zip(*blocks)]
+
+
+def gathered(dyn):
+    """Per-shard tables concatenated on the host, one array a table."""
+    return [np.concatenate([t[k].numpy() for t in dyn])
+            for k in range(len(dyn[0]))]
+
+
+# -- the sharded kernels as functions -----------------------------------------
+
+
+def apply_case(seed, n_shards=8, b_loc=2, n1=33, s1=9, widths=(16, 8, 8, 8)):
+    """Random per-shard lanes (counts, dense values, sparse, head and
+    delete writes, a few targets out of range or negative) and tables."""
+    g = np.random.default_rng(seed)
+    k_dn, k_sp, k_h, k_d = widths
+    lane_w = 4 * b_loc + k_dn + 2 * k_sp + 2 * k_h + k_d
+    lanes = np.empty((n_shards, lane_w), np.int32)
+    for s in range(n_shards):
+        cnt = [g.integers(0, k // b_loc + 1, size=b_loc) for k in widths]
+        o = 4 * b_loc
+        lanes[s, :o] = np.concatenate(cnt)
+        lanes[s, o : o + k_dn] = g.integers(-1, n1, size=k_dn)
+        o += k_dn
+        lanes[s, o : o + k_sp] = g.integers(-3, n1 + 3, size=k_sp)
+        lanes[s, o + k_sp : o + 2 * k_sp] = g.integers(-1, n1, size=k_sp)
+        o += 2 * k_sp
+        lanes[s, o : o + k_h] = g.integers(-2, s1 + 2, size=k_h)
+        lanes[s, o + k_h : o + 2 * k_h] = g.integers(-1, n1, size=k_h)
+        o += 2 * k_h
+        lanes[s, o : o + k_d] = g.integers(-2, n1 + 2, size=k_d)
+    b = n_shards * b_loc
+    tables = (g.integers(-1, n1, size=(b, n1)).astype(np.int32),
+              g.random((b, n1)) < 0.3,
+              g.integers(-1, n1, size=(b, s1)).astype(np.int32))
+    return widths, lanes, tables
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int16])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_sharded_apply_plan_matches_jax(jmesh8, mesh8, seed, dtype):
+    widths, lanes, tables = apply_case(seed)
+    lanes = lanes.astype(dtype)
+    fn = jmesh.sharded_apply_plan(jmesh8, "docs", *widths)
+    out, metrics = fn(tuple(jnp.asarray(t) for t in tables), jnp.asarray(lanes))
+    want = [np.asarray(t) for t in out]
+    want_m = {k: int(v) for k, v in metrics.items()}
+    assert want_m["integrated"] > 0 and want_m["deleted"] > 0
+    for plain in (False, True):
+        dyn = shard_tables(mesh8, *tables)
+        fn = tmesh.sharded_apply_plan(mesh8, "docs", *widths, plain=plain)
+        dyn, counters = fn(dyn, lanes)
+        for w, g in zip(want, gathered(dyn)):
+            np.testing.assert_array_equal(w, g)
+        assert tmesh.fold_metrics(counters, plain=plain) == want_m
+
+
+@pytest.fixture(scope="module")
+def levels_case():
+    cap, s1, stages = yata_case(41, 8, w_pad=4, uniform=True)
+    return cap, s1, stages
+
+
+def _stage_statics(stage):
+    return {k: stage[k].view(np.uint32) if k == "client_key" else stage[k]
+            for k in tk.STATIC_KEYS}
+
+
+def test_sharded_batch_step_matches_jax(jmesh8, mesh8, levels_case):
+    """Flush by flush over three planned stages: the tables and each
+    stage's folded counters equal the JAX shard_map step's; counters
+    passed back in carry on (the engine's level blocks add up)."""
+    cap, s1, stages = levels_case
+    step = jmesh.sharded_batch_step(jmesh8, "docs")
+    dyn_j = tuple(jnp.asarray(a) for a in yata_tables(8, cap, s1))
+    fn = tmesh.sharded_batch_step(mesh8, "docs")
+    dyn = shard_tables(mesh8, *yata_tables(8, cap, s1))
+    dyn2 = shard_tables(mesh8, *yata_tables(8, cap, s1))
+    total = {"integrated": 0, "deleted": 0}
+    carried = None
+    for st in stages:
+        statics = {k: jnp.asarray(v) for k, v in _stage_statics(st).items()}
+        dyn_j, m = step(statics, dyn_j, *(jnp.asarray(st[k]) for k in
+                                          ("splits", "lv", "dels", "scratch")))
+        want_m = {k: int(v) for k, v in m.items()}
+        cols = [dict(zip(tk.STATIC_KEYS, c)) for c in zip(*(
+            tmesh.shard_rows(st[k].copy(), mesh8.axis_devices())
+            for k in tk.STATIC_KEYS))]
+        args = [st[k] for k in ("splits", "lv", "dels", "scratch")]
+        dyn, counters = fn(cols, dyn, *args)
+        assert tmesh.fold_metrics(counters) == want_m
+        dyn2, carried = fn(cols, dyn2, *args, counters=carried)
+        total = {k: total[k] + want_m[k] for k in total}
+        for w, g, g2 in zip(dyn_j, gathered(dyn), gathered(dyn2)):
+            np.testing.assert_array_equal(np.asarray(w), g)
+            np.testing.assert_array_equal(g, g2)
+    assert total["integrated"] > 0 and total["deleted"] > 0
+    assert tmesh.fold_metrics(carried) == total
+
+
+def sv_case(seed, b=8, n=16, slots=4):
+    g = np.random.default_rng(seed)
+    return (g.integers(-1, slots + 1, size=(b, n)).astype(np.int32),
+            g.integers(1, 100, size=(b, n)).astype(np.int32))
+
+
+def test_sharded_state_vectors_1d_matches_jax(jmesh8, mesh8):
+    row_slot, row_end = sv_case(3)
+    want = np.asarray(jmesh.sharded_state_vectors(jmesh8, 4)(row_slot, row_end))
+    for plain in (False, True):
+        got = tmesh.sharded_state_vectors(mesh8, 4, plain=plain)(row_slot, row_end)
+        np.testing.assert_array_equal(want, got.numpy())
+        assert got.dtype == torch.int32
+
+
+def test_sharded_state_vectors_2d_matches_jax():
+    """A 4 x 2 ("docs", "rows") mesh: each row shard's partial, then the
+    max over the two row shards (pmax / the MAX fold)."""
+    devs = jax.devices("cpu")
+    if len(devs) < 8:
+        pytest.skip("needs 8 virtual cpu devices")
+    jm = Mesh(np.array(devs[:8]).reshape(4, 2), ("docs", "rows"))
+    tm = DocMesh(np.full((4, 2), CPU, dtype=object), ("docs", "rows"))
+    assert tm.shape == {"docs": 4, "rows": 2}
+    for seed in (4, 5):
+        row_slot, row_end = sv_case(seed, n=32, slots=6)
+        fn = jmesh.sharded_state_vectors(jm, 6, "docs", "rows")
+        want = np.asarray(fn(row_slot, row_end))
+        for plain in (False, True):
+            got = tmesh.sharded_state_vectors(tm, 6, "docs", "rows",
+                                              plain=plain)(row_slot, row_end)
+            np.testing.assert_array_equal(want, got.numpy())
+        # the fold is what joins the row shards: one row shard is wrong
+        half = tmesh.sharded_state_vectors(
+            DocMesh(np.full((4, 1), CPU, dtype=object), ("docs", "rows")),
+            6, "docs", "rows",
+        )(row_slot[:, :16], row_end[:, :16])
+        assert not np.array_equal(want, half.numpy())
+
+
+def test_shard_fold_plain_sums_in_int32_and_takes_max():
+    g = np.random.default_rng(7)
+    parts = [torch.from_numpy(g.integers(-(2**31), 2**31, size=(3, 5),
+                                         dtype=np.int64).astype(np.int32))
+             for _ in range(5)]
+    stacked = np.stack([p.numpy() for p in parts]).astype(np.int64)
+    want_sum = ((stacked.sum(0) + 2**31) % 2**32 - 2**31).astype(np.int32)
+    got = tk.shard_fold(parts, "sum")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want_sum)
+    np.testing.assert_array_equal(tk.shard_fold(parts, "max").numpy(),
+                                  stacked.max(0))
+    with pytest.raises(ValueError, match="op"):
+        tk.shard_fold(parts, "min")
+
+
+def lookup_case(seed, n_hay=256, n_q=200):
+    """Sorted int64 haystack keys below 2**31 (no padding: the length is
+    a power of two) and queries, some absent (-1), some past the end."""
+    g = np.random.default_rng(seed)
+    hay = np.sort(g.choice(2**31 - 1, size=n_hay, replace=False)).astype(np.int64)
+    q = np.concatenate([g.choice(hay, n_q // 2),
+                        g.integers(-1, 2**31 - 1, size=n_q - n_q // 2)])
+    q[::17] = -1
+    return hay, q.astype(np.int64)
+
+
+def test_sharded_lookup_matches_jax_and_one_shard(jmesh8, mesh8):
+    hay, q = lookup_case(8)
+    qb = tk._bucket_pow2(len(q))
+    q_pad = tk._pad_pow2(q, qb, -1)
+    want = np.asarray(jsp._sharded_lookup(jmesh8, "docs")(hay, q_pad))
+    got = tsp._sharded_lookup(mesh8.axis_devices(), hay, q_pad)
+    np.testing.assert_array_equal(want, got)
+    one = tk.lookup_keys(hay, q, "jax", "cpu")
+    np.testing.assert_array_equal(got[: len(q)], one)
+    np.testing.assert_array_equal(
+        got[: len(q)], np.searchsorted(hay, q, side="right") - 1
+    )
+
+
+def test_sharded_lookup_true_int64_keys(mesh8):
+    """Keys past int32 with int64.max padding (ROADMAP R2): the sharded
+    lookup equals the port's K11 and the ``np`` mode."""
+    g = np.random.default_rng(9)
+    hay = np.sort(g.integers(0, 2**40, size=300)).astype(np.int64)
+    q = np.concatenate([hay[::3] + 1, g.integers(-1, 2**41, size=50)])
+    fb, qb = tk._bucket_pow2(len(hay)), tk._bucket_pow2(len(q))
+    got = tsp._sharded_lookup(
+        mesh8.axis_devices(),
+        tk._pad_pow2(hay, fb, np.iinfo(np.int64).max),
+        tk._pad_pow2(q, qb, -1),
+    )[: len(q)]
+    np.testing.assert_array_equal(got, tk.lookup_keys(hay, q, "jax", "cpu"))
+    np.testing.assert_array_equal(
+        got, np.searchsorted(hay, q, side="right") - 1
+    )
+
+
+# -- the cases of tests/test_parallel.py, on the port ---------------------------
+
+
+def test_sharded_flush_matches_cpu(mesh8):
+    n = 16
+    docs = build_docs(n)
+    eng = TorchEngine(n, mesh=mesh8)
+    assert eng.device == CPU
+    for i, d in enumerate(docs):
+        eng.queue_update(i, Y.encode_state_as_update(d))
+    eng.flush()
+    assert eng.last_metrics is not None and eng.last_metrics["integrated"] > 0
+    for i, d in enumerate(docs):
+        assert eng.text(i) == d.get_text("text").to_string()
+        assert eng.state_vector(i) == {
+            c: v for c, v in Y.get_state_vector(d.store).items() if v > 0
+        }
+
+
+def test_sharded_incremental_concurrent(mesh8):
+    n = 8
+    docs = build_docs(n)
+    eng = TorchEngine(n, mesh=mesh8)
+    for i, d in enumerate(docs):
+        eng.queue_update(i, Y.encode_state_as_update(d))
+    eng.flush()
+    for i, d in enumerate(docs):
+        remote = Y.Doc(gc=False)
+        remote.client_id = 2000 + i
+        Y.apply_update(remote, Y.encode_state_as_update(d))
+        remote.get_text("text").insert(0, "R:")
+        u = Y.encode_state_as_update(remote, Y.encode_state_vector(d))
+        Y.apply_update(d, u)
+        eng.queue_update(i, u)
+    eng.flush()
+    for i, d in enumerate(docs):
+        assert eng.text(i) == d.get_text("text").to_string()
+
+
+def test_engine_batched_svs_use_sharded_kernel(mesh8):
+    n = 8
+    docs = build_docs(n)
+    eng = TorchEngine(n, mesh=mesh8)
+    for i, d in enumerate(docs):
+        eng.queue_update(i, Y.encode_state_as_update(d))
+    eng.flush()
+    subset = [0, 3, 5]  # not a multiple of the axis size: exercises padding
+    svs = eng.state_vectors_batched(subset)
+    for j, i in enumerate(subset):
+        assert svs[j] == {
+            c: v for c, v in Y.get_state_vector(docs[i].store).items() if v > 0
+        }
+    assert eng._sharded_sv
+
+
+def test_sharded_levels_kernel_path(mesh8, monkeypatch):
+    monkeypatch.setenv("YTPU_KERNEL", "levels")
+    n = 8
+    docs = build_docs(n)
+    eng = TorchEngine(n, mesh=mesh8)
+    for i, d in enumerate(docs):
+        eng.queue_update(i, Y.encode_state_as_update(d))
+    eng.flush()
+    assert eng.last_metrics is not None
+    assert eng.last_metrics["integrated"] > 0
+    for i, d in enumerate(docs):
+        assert eng.text(i) == d.get_text("text").to_string()
+
+
+def test_meshed_engine_arrays_stay_on_mesh(mesh8, monkeypatch):
+    """Every table of a meshed engine is one tensor a shard on that
+    shard's mesh device, through flushes, the statics scatter, capacity
+    growth, compaction and the sync kernels."""
+    devs = mesh8.axis_devices()
+    n = 8
+    docs = build_docs(n)
+    eng = TorchEngine(n, mesh=mesh8, compact_min_rows=4)
+
+    def check_all(statics: bool):
+        shards = eng.shard_tables()
+        assert len(shards) == len(devs)
+        for (tabs, st), dev in zip(shards, devs):
+            for t in tabs:
+                assert t.device == dev and t.shape[0] == n // len(devs)
+            assert (st is not None) == statics
+            for v in (st or {}).values():
+                assert v.device == dev and v.shape == tabs[0].shape
+
+    for i, d in enumerate(docs):
+        eng.queue_update(i, Y.encode_state_as_update(d))
+    eng.flush()
+    check_all(False)
+    cap = eng._cap
+    for i, d in enumerate(docs):
+        sv = Y.encode_state_vector(d)
+        for _ in range(70):  # prepends: one row each, so capacity grows
+            d.get_text("text").insert(0, "x")
+        eng.queue_update(i, Y.encode_state_as_update(d, sv))
+    eng.flush()
+    assert eng._cap > cap
+    check_all(False)
+    monkeypatch.setenv("YTPU_KERNEL", "levels")
+    for i, d in enumerate(docs):
+        sv = Y.encode_state_vector(d)
+        d.get_text("text").insert(3, "lv")
+        eng.queue_update(i, Y.encode_state_as_update(d, sv))
+    eng.flush()
+    monkeypatch.delenv("YTPU_KERNEL")
+    assert eng.last_compaction  # the rows scatter, shard by shard
+    check_all(True)
+    eng.state_vectors_batched(list(range(n)))
+    eng.sync_step2_batch([(i, None) for i in range(n)])
+    check_all(True)
+    for i, d in enumerate(docs):
+        assert eng.text(i) == d.get_text("text").to_string()
+
+
+def test_sharded_state_vector_kernel(mesh8):
+    b, n, slots = 8, 16, 4
+    rng = np.random.RandomState(0)
+    row_slot = rng.randint(-1, slots, size=(b, n)).astype(np.int32)
+    row_end = rng.randint(1, 100, size=(b, n)).astype(np.int32)
+    sv = tmesh.sharded_state_vectors(mesh8, slots)(row_slot, row_end).numpy()
+    for bi in range(b):
+        for s in range(slots):
+            mask = row_slot[bi] == s
+            expect = row_end[bi][mask].max() if mask.any() else 0
+            assert sv[bi, s] == expect
+
+
+def test_meshed_provider_full_surface(mesh8):
+    """The port's provider surface on a sharded engine: receive/flush,
+    sync handshake, snapshot and scoped render, server undo."""
+    from yjs_tpu_torch.lib0.decoding import Decoder
+    from yjs_tpu_torch.lib0.encoding import Encoder
+    from yjs_tpu_torch.provider import TpuProvider
+    from yjs_tpu_torch.sync import protocol
+
+    prov = TpuProvider(n_docs=16, mesh=mesh8)
+    prov.enable_undo("room-0", capture_timeout=0)
+    clients = []
+    for i in range(16):
+        d = T.Doc(gc=False)
+        d.client_id = 3000 + i
+        d.get_text("text").insert(0, f"room{i} hello")
+        clients.append(d)
+        prov.receive_update(
+            f"room-{i}", T.encode_state_as_update(d), undoable=(i == 0)
+        )
+    prov.flush()
+    snap = prov.snapshot("room-3")
+    for i, d in enumerate(clients):
+        d.get_text("text").insert(0, "more! ")
+        prov.receive_update(
+            f"room-{i}", T.encode_state_as_update(d, None), undoable=(i == 0)
+        )
+    prov.flush()
+    assert prov.engine.last_metrics["integrated"] > 0
+    for i, d in enumerate(clients):
+        assert prov.text(f"room-{i}") == d.get_text("text").to_string()
+    assert prov.to_delta("room-3", snapshot=snap) == [{"insert": "room3 hello"}]
+    peer = T.Doc(gc=False)
+    enc = Encoder()
+    protocol.write_sync_step1(enc, peer)
+    reply = prov.handle_sync_message("room-5", enc.to_bytes())
+    assert reply
+    protocol.read_sync_message(Decoder(reply), Encoder(), peer, "prov")
+    assert (peer.get_text("text").to_string()
+            == clients[5].get_text("text").to_string())
+    prov.undo("room-0")
+    assert prov.text("room-0") == "room0 hello"
+    prov.redo("room-0")
+    assert prov.text("room-0") == "more! room0 hello"
+    assert prov.engine.fallback == {}
+
+
+# -- meshed engines against the JAX meshed engine ---------------------------------
+
+
+def drive(engine, per_doc, flush_every=6, statics=False):
+    """Queue step j's update of every doc, flushing every
+    ``flush_every`` steps; returns what the comparison reads."""
+    n = engine.n_docs
+    seen = {"tables": [], "metrics": [], "keysets": set()}
+    steps = max(len(u) for u in per_doc)
+    for j in range(steps):
+        for i, ups in enumerate(per_doc):
+            if j < len(ups):
+                engine.queue_update(i, ups[j])
+        if (j + 1) % flush_every == 0 or j == steps - 1:
+            engine.flush()
+            seen["keysets"].add(frozenset(engine.last_flush_metrics))
+            seen["metrics"].append(engine.last_metrics)
+            seen["tables"].append(trim_tables(engine, statics=statics))
+    seen["texts"] = [engine.text(i) for i in range(n)]
+    seen["states"] = [Y.merge_updates([engine.encode_state_as_update(i)])
+                      for i in range(n)]
+    seen["svs"] = engine.state_vectors_batched(list(range(0, n, 3)))
+    return seen
+
+
+def assert_runs_equal(want, got):
+    assert got["texts"] == want["texts"]
+    assert got["states"] == want["states"]
+    assert got["svs"] == want["svs"]
+    assert got["metrics"] == want["metrics"]
+    assert got["keysets"] == {frozenset(FLUSH_METRICS_SCHEMA)}
+    assert want["keysets"] == {frozenset(JAX_SCHEMA)}
+    assert len(got["tables"]) == len(want["tables"])
+    for tw, tg in zip(want["tables"], got["tables"]):
+        for dw, dg in zip(tw, tg):
+            assert (dw is None) == (dg is None)
+            if dw is None:
+                continue
+            for a, b in zip(dw[:3], dg[:3]):
+                np.testing.assert_array_equal(a, b)
+            if len(dw) > 3 and dw[3] is not None:
+                for k in dw[3]:
+                    np.testing.assert_array_equal(dw[3][k], dg[3][k])
+
+
+ENGINE_CASES = [
+    (mode, mirror) for mirror in ("native", "python")
+    for mode in ("apply", "levels", "seq")
+]
+
+
+@pytest.mark.parametrize("mode,mirror", ENGINE_CASES)
+def test_meshed_engine_matches_jax(jmesh8, mesh8, mode, mirror, monkeypatch):
+    if mode != "apply":
+        monkeypatch.setenv("YTPU_KERNEL", mode)
+    if mirror == "python":
+        monkeypatch.setenv("YTPU_NO_NATIVE_PLAN", "1")
+    calls = []
+    real = tsp._sharded_lookup
+    monkeypatch.setattr(
+        tsp, "_sharded_lookup", lambda *a: calls.append(1) or real(*a)
+    )
+    # interleaving editors: the Python mirrors' chunk plans need anchor
+    # lookups (K13 on the mesh)
+    per_doc = [planner_corpus(("interleaved", "storm")[i % 2], 70 + i, 60)
+               for i in range(16)]
+    yata = mode != "apply"
+    want = drive(JaxEngine(16, mesh=jmesh8, compact_min_rows=24), per_doc,
+                 statics=yata)
+    eng = TorchEngine(16, mesh=mesh8, compact_min_rows=24)
+    got = drive(eng, per_doc, statics=yata)
+    assert_runs_equal(want, got)
+    if mode == "seq":
+        assert all(m is None for m in got["metrics"])
+    else:
+        assert all(m["integrated"] > 0 for m in got["metrics"])
+    assert eng.last_compaction
+    assert type(eng.mirrors[0]).__name__ == (
+        "DocMirror" if mirror == "python" else "NativeMirror"
+    )
+    if mirror == "python" and mode == "apply":
+        assert calls, "the chunk planner never ran the sharded lookup"
+
+
+def test_meshed_engine_matches_unmeshed(mesh8):
+    """One shard or eight: the same tables, texts and states; only the
+    meshed engine reports ``last_metrics``."""
+    per_doc = [make_trace(SHAPES[i % 3], seed=90 + i, n_ops=30)
+               for i in range(8)]
+    one = drive(TorchEngine(8, device="cpu"), per_doc)
+    many = drive(TorchEngine(8, mesh=mesh8), per_doc)
+    assert all(m is None for m in one["metrics"])
+    one["metrics"] = many["metrics"]
+    assert_runs_equal({**one, "keysets": {frozenset(JAX_SCHEMA)}}, many)
+
+
+# -- errors and fallbacks -------------------------------------------------------
+
+
+def test_mesh_errors_and_fallbacks():
+    with pytest.raises(ValueError, match="multiple of the 'docs' axis"):
+        TorchEngine(6, mesh=doc_mesh(4, backend="cpu"))
+    with pytest.raises(ValueError, match="conflicts with the mesh"):
+        TorchEngine(4, mesh=doc_mesh(4, backend="cpu"), device="cuda")
+    with pytest.raises(ValueError, match="requested"):
+        doc_mesh(torch.cuda.device_count() + 1)
+    with pytest.raises(ValueError, match="positive"):
+        shard_meshes(0)
+    # one CPU device, more shards than devices: every shard unmeshed
+    assert shard_meshes(3, backend="cpu") == [None, None, None]
+    (only,) = shard_meshes(1, backend="cpu")
+    assert only.shape == {"docs": 1} and only.axis_devices() == [CPU]
+    m = doc_mesh(3, axis="d", backend="cpu")
+    assert m.axis_names == ("d",) and m.devices.size == 3
+    with pytest.raises(ValueError, match="axes"):
+        DocMesh([CPU, CPU], ("docs", "rows"))

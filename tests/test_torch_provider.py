@@ -1244,9 +1244,36 @@ def test_default_provider_needs_cuda(tmp_path):
     assert TpuProvider.recover(str(tmp_path), device="cpu").text("r") == "x"
 
 
-def test_mesh_raises_not_ported():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        PORT.new(2, mesh=object())
+def test_mesh_raises_not_ported(tmp_path):
+    """Once unported, now ported: a provider over a two-shard CPU mesh
+    (``TpuProvider(mesh=)`` and ``TpuProvider.recover(mesh=)``) observes
+    what the JAX provider on its two-device host mesh does."""
+    import yjs_tpu.parallel
+    import yjs_tpu_torch.parallel
+
+    def scenario(side, work):
+        pkg = yjs_tpu if side is JAX else yjs_tpu_torch
+        mesh = pkg.parallel.doc_mesh(2, backend="cpu")
+        p = side.new(2, mesh=mesh, wal_dir=str(work))
+        for k, text in enumerate(("left", "right")):
+            p.receive_update(f"r{k}", upd(text, cid=k + 1))
+        p.flush()
+        for k in range(2):
+            p.receive_update(f"r{k}", upd(f"more{k}", cid=10 + k))
+        p.flush()
+        seen = {
+            "texts": [p.text(f"r{k}") for k in range(2)],
+            "metrics": p.engine.last_metrics,
+        }
+        p.close()
+        rec = side.recover(str(work), mesh=mesh)
+        seen["recovered"] = [rec.text(f"r{k}") for k in range(2)]
+        seen["recovered_meshed"] = rec.engine.mesh is mesh
+        return seen
+
+    seen = both(scenario, tmp_path)
+    assert seen["metrics"]["integrated"] > 0
+    assert seen["recovered"] == seen["texts"] and seen["recovered_meshed"]
 
 
 def test_lazy_provider_full_error_is_the_ports_own():

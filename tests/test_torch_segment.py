@@ -293,20 +293,32 @@ def test_plan_chunk_device_matches_per_doc_np():
         m.prepare_step_finish(tok, sp)
 
 
-def test_plan_chunk_refuses_a_multi_device_mesh():
-    m, tok = _tokens("storm", 5)
-    items = [(tok.queries, m._segment_snapshot)] * 2
+def test_plan_chunk_refuses_a_multi_device_mesh(monkeypatch):
+    """Once refused, now ported: over a mesh of more than one shard the
+    chunk's anchor lookup runs sharded (K13), and its plans equal the
+    one-shard mesh's, the unmeshed chunk's and per-doc np plans."""
+    from yjs_tpu_torch.parallel import doc_mesh
 
-    class Mesh:
-        class devices:
-            size = 2
-
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsp.plan_chunk(items, mode="device", mesh=Mesh(), device="cpu")
-    Mesh.devices.size = 1
-    one = tsp.plan_chunk(items, mode="device", mesh=Mesh(), device="cpu")
-    _assert_plans_equal(one[0], tsp.plan_doc(tok.queries, mode="np",
-                                             snapshot=m._segment_snapshot))
+    pairs = [_tokens(s, 61 + k, 50) for k, s in enumerate(PLANNER_SHAPES)]
+    pairs += [_tokens("interleaved", 90, 120)]
+    items = [(tok.queries, m._segment_snapshot) for m, tok in pairs]
+    calls = []
+    real = tsp._sharded_lookup
+    monkeypatch.setattr(
+        tsp, "_sharded_lookup",
+        lambda devs, fk, qk: calls.append(len(devs)) or real(devs, fk, qk),
+    )
+    plans = {
+        n: tsp.plan_chunk(items, mode="device", device="cpu",
+                          mesh=None if n is None else doc_mesh(n, "docs", "cpu"))
+        for n in (None, 1, 3)
+    }
+    assert calls == [3]  # the one-shard mesh looks up unsharded
+    assert any(p is not None and p.hint_l is not None for p in plans[3])
+    for (q, snap), *got in zip(items, plans[None], plans[1], plans[3]):
+        want = tsp.plan_doc(q, mode="np", snapshot=snap)
+        for g in got:
+            _assert_plans_equal(want, g, chunk=True)
 
 
 def test_mirror_plans_on_its_device():

@@ -20,6 +20,15 @@
 // are dropped, as JAX's mode="drop" drops them.  Lanes are read at their
 // stored width (int16 or int32) and sign-extended in registers, so an i16
 // buffer is never widened in a separate pass.
+//
+// The shard of a doc mesh (K14, yjs_tpu/parallel/mesh.py sharded_apply_plan
+// :134) runs the same launches on its own lanes and tables and also wants
+// its progress counters: integrated = the sum of the dense and sparse
+// counts, deleted = the sum of the delete counts.  The count scan already
+// has those totals, so with a counter pointer its blocks 0, 1 and 3 add
+// them (int32, wrapping like the reference's int32 sum) into a zeroed
+// per-shard [2] counter with one atomic each; no second pass reads the
+// header again.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,7 +44,8 @@ enum Section { kDense = 0, kSparse = 1, kHeads = 2, kDels = 3 };
 // contiguous run, a Hillis-Steele scan over the run totals gives offsets.
 template <typename T>
 __global__ void scan_counts(const T* __restrict__ lanes,
-                            int32_t* __restrict__ cum, int b) {
+                            int32_t* __restrict__ cum, int b,
+                            int32_t* __restrict__ counter) {
   __shared__ int32_t part[kScanThreads];
   const T* cnt = lanes + (size_t)blockIdx.x * b;
   int32_t* out = cum + (size_t)blockIdx.x * b;
@@ -56,6 +66,10 @@ __global__ void scan_counts(const T* __restrict__ lanes,
   for (int i = lo; i < hi; ++i) {
     run += (int32_t)cnt[i];
     out[i] = run;
+  }
+  // the section total: dense + sparse into counter[0], deletes into [1]
+  if (counter != nullptr && threadIdx.x == 0 && blockIdx.x != kHeads) {
+    atomicAdd(&counter[blockIdx.x == kDels ? 1 : 0], part[blockDim.x - 1]);
   }
 }
 
@@ -123,9 +137,10 @@ void launch_section(const T* lanes, const int32_t* cum, int32_t* right,
 template <typename T>
 int apply_lanes(const T* lanes, int32_t* cum, int32_t* right,
                 uint8_t* deleted, int32_t* starts, int b, int n1, int s1,
-                int k_dn, int k_sp, int k_h, int k_d, cudaStream_t stream) {
+                int k_dn, int k_sp, int k_h, int k_d, int32_t* counter,
+                cudaStream_t stream) {
   if (b <= 0) return (int)cudaSuccess;
-  scan_counts<T><<<4, kScanThreads, 0, stream>>>(lanes, cum, b);
+  scan_counts<T><<<4, kScanThreads, 0, stream>>>(lanes, cum, b, counter);
   int off = 4 * b;
   launch_section<T, kDense>(lanes, cum, right, deleted, starts, b, n1, s1,
                             off, k_dn, stream);
@@ -190,24 +205,28 @@ extern "C" int ytpu_apply_plan_shared(const void* lanes, void* right,
   return (int)cudaGetLastError();
 }
 
+// counter: a zeroed [2] int32 on the lanes' device, or null (unsharded).
 extern "C" int ytpu_apply_lanes_i32(const void* lanes, void* cum, void* right,
                                     void* deleted, void* starts, int b,
                                     int n1, int s1, int k_dn, int k_sp,
-                                    int k_h, int k_d, void* stream) {
+                                    int k_h, int k_d, void* counter,
+                                    void* stream) {
   return apply_lanes<int32_t>(
       static_cast<const int32_t*>(lanes), static_cast<int32_t*>(cum),
       static_cast<int32_t*>(right), static_cast<uint8_t*>(deleted),
       static_cast<int32_t*>(starts), b, n1, s1, k_dn, k_sp, k_h, k_d,
-      static_cast<cudaStream_t>(stream));
+      static_cast<int32_t*>(counter), static_cast<cudaStream_t>(stream));
 }
 
+// counter: a zeroed [2] int32 on the lanes' device, or null (unsharded).
 extern "C" int ytpu_apply_lanes_i16(const void* lanes, void* cum, void* right,
                                     void* deleted, void* starts, int b,
                                     int n1, int s1, int k_dn, int k_sp,
-                                    int k_h, int k_d, void* stream) {
+                                    int k_h, int k_d, void* counter,
+                                    void* stream) {
   return apply_lanes<int16_t>(
       static_cast<const int16_t*>(lanes), static_cast<int32_t*>(cum),
       static_cast<int32_t*>(right), static_cast<uint8_t*>(deleted),
       static_cast<int32_t*>(starts), b, n1, s1, k_dn, k_sp, k_h, k_d,
-      static_cast<cudaStream_t>(stream));
+      static_cast<int32_t*>(counter), static_cast<cudaStream_t>(stream));
 }

@@ -46,6 +46,14 @@
 //   docs read one shared copy (L2-resident); the tables, visit scratch,
 //   fast flags and scratch_base keep the doc axis.  K6's instantiation
 //   computes the same addresses as before the template.
+// - K15 sharded_batch_step (yjs_tpu/parallel/mesh.py:101) is K6 on each
+//   shard of a doc mesh plus the shard's progress counters: the schedule
+//   lanes with a row (lv[..., 0] >= 0) and the delete rows (>= 0), the
+//   reference's int32 sums before its psum.  With a progress pointer each
+//   thread counts the lanes of its gap checks and the delete rows it
+//   marks; a warp reduce, one shared atomic a warp and one global atomic
+//   a block add them into the shard's zeroed [2] counter.  K7b passes no
+//   pointer and counts nothing.
 // Indices follow XLA's rules: a gather wraps a negative index and clamps,
 // a scatter wraps a negative index and drops what is still out of range.
 // Client keys hold u32 bit patterns and compare unsigned (YATA case 1).
@@ -233,7 +241,8 @@ __global__ void batch_step_levels_kernel(
     uint8_t* fast, const int32_t* __restrict__ splits,
     const int32_t* __restrict__ lv, const int32_t* __restrict__ dels,
     const int32_t* __restrict__ scratch_base, int n1, int s1, int n_splits,
-    int n_lv, int w, int n_del, int fast_w, int32_t epoch_max) {
+    int n_lv, int w, int n_del, int fast_w, int32_t epoch_max,
+    int32_t* __restrict__ progress) {
   const int64_t doc = blockIdx.x;
   const int64_t sdoc = kShared ? 0 : doc;  // the shared inputs' doc index
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -244,6 +253,7 @@ __global__ void batch_step_levels_kernel(
   if (tid == 0) split_prepass(d, splits + sdoc * n_splits * 2, n_splits);
   __syncthreads();
   int32_t counter = 0;  // thread 0's: only thread 0 integrates
+  int32_t n_valid = 0, n_dels = 0;  // this thread's share of the counters
   for (int lev = 0; lev < n_lv; ++lev) {
     const int32_t* e = lv + (sdoc * n_lv + lev) * (int64_t)w * 8;
     // (a) gap check of every lane
@@ -258,6 +268,7 @@ __global__ void batch_step_levels_kernel(
                                 : d.rl[gidx(chk >= 0 ? chk : dummy, n1)] == r0);
       f[j] = fst;
       pend |= mask && !fst;
+      n_valid += mask;
     }
     pend = __syncthreads_or(pend);
     // (b) the 2W unique-index link writes and the head writes
@@ -287,7 +298,27 @@ __global__ void batch_step_levels_kernel(
     }
   }
   const int32_t* dr = dels + sdoc * n_del;
-  for (int j = tid; j < n_del; j += nt) delete_row(d, dr[j]);
+  for (int j = tid; j < n_del; j += nt) {
+    delete_row(d, dr[j]);
+    n_dels += dr[j] >= 0;
+  }
+  if (!kShared && progress != nullptr) {  // uniform over the block
+    __shared__ int32_t red[2];
+    if (tid == 0) red[0] = red[1] = 0;
+    __syncthreads();
+    const unsigned all = 0xffffffffu;
+    const int32_t wv = (int32_t)__reduce_add_sync(all, (unsigned)n_valid);
+    const int32_t wd = (int32_t)__reduce_add_sync(all, (unsigned)n_dels);
+    if ((tid & 31) == 0) {
+      atomicAdd(&red[0], wv);
+      atomicAdd(&red[1], wd);
+    }
+    __syncthreads();
+    if (tid == 0) {
+      atomicAdd(&progress[0], red[0]);
+      atomicAdd(&progress[1], red[1]);
+    }
+  }
 }
 
 Statics make_statics(const void* key, const void* oslot, const void* oclock,
@@ -333,7 +364,7 @@ int launch_levels(const void* key, const void* oslot, const void* oclock,
                   const void* splits, const void* lv, const void* dels,
                   const void* scratch_base, int b, int n1, int s1,
                   int n_splits, int n_lv, int w, int n_del, int fast_w,
-                  int epoch_max, void* stream) {
+                  int epoch_max, void* progress, void* stream) {
   if (b <= 0) return (int)cudaSuccess;
   int threads = ((w + 31) / 32) * 32;
   if (threads < 32) threads = 32;
@@ -346,23 +377,25 @@ int launch_levels(const void* key, const void* oslot, const void* oclock,
       static_cast<uint8_t*>(fast), static_cast<const int32_t*>(splits),
       static_cast<const int32_t*>(lv), static_cast<const int32_t*>(dels),
       static_cast<const int32_t*>(scratch_base), n1, s1, n_splits, n_lv, w,
-      n_del, fast_w, epoch_max);
+      n_del, fast_w, epoch_max, static_cast<int32_t*>(progress));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// progress: the shard's zeroed [2] int32 counter (K15), or null (K6
+// alone).
 extern "C" int ytpu_batch_step_levels(
     const void* key, const void* oslot, const void* oclock, const void* rslot,
     const void* rclock, const void* orow, void* rl, void* dl, void* starts,
     void* visit, void* fast, const void* splits, const void* lv,
     const void* dels, const void* scratch_base, int b, int n1, int s1,
     int n_splits, int n_lv, int w, int n_del, int fast_w, int epoch_max,
-    void* stream) {
+    void* progress, void* stream) {
   return launch_levels<false>(key, oslot, oclock, rslot, rclock, orow, rl, dl,
                               starts, visit, fast, splits, lv, dels,
                               scratch_base, b, n1, s1, n_splits, n_lv, w,
-                              n_del, fast_w, epoch_max, stream);
+                              n_del, fast_w, epoch_max, progress, stream);
 }
 
 // The K7b entry: statics are [N+1] columns, splits [S, 2], lv [L, W, 8],
@@ -377,5 +410,5 @@ extern "C" int ytpu_batch_step_levels_shared(
   return launch_levels<true>(key, oslot, oclock, rslot, rclock, orow, rl, dl,
                              starts, visit, fast, splits, lv, dels,
                              scratch_base, b, n1, s1, n_splits, n_lv, w,
-                             n_del, fast_w, epoch_max, stream);
+                             n_del, fast_w, epoch_max, nullptr, stream);
 }

@@ -36,7 +36,7 @@ CSRC = os.path.join(
 )
 SOURCES = (
     "apply_lanes", "scatter_rows", "list_ranks", "state_vector", "diff_mask",
-    "statics", "yata", "conflict_scan", "anchor_lookup",
+    "statics", "yata", "conflict_scan", "anchor_lookup", "shard_fold",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,22 +48,25 @@ _int = ctypes.c_int
 _i64 = ctypes.c_int64
 # C entry points: name -> (library, argtypes)
 _ENTRIES = {
-    "ytpu_apply_lanes_i32": ("apply_lanes", [_vp] * 5 + [_int] * 7 + [_vp]),
-    "ytpu_apply_lanes_i16": ("apply_lanes", [_vp] * 5 + [_int] * 7 + [_vp]),
+    "ytpu_apply_lanes_i32": ("apply_lanes", [_vp] * 5 + [_int] * 7 + [_vp] * 2),
+    "ytpu_apply_lanes_i16": ("apply_lanes", [_vp] * 5 + [_int] * 7 + [_vp] * 2),
     "ytpu_scatter_rows": ("scatter_rows", [_vp] * 7 + [_int] * 4 + [_vp]),
     "ytpu_list_ranks": ("list_ranks", [_vp] * 4 + [_int] * 3 + [_vp]),
     "ytpu_state_vector": ("state_vector", [_vp] * 3 + [_int] * 3 + [_vp]),
     "ytpu_diff_mask": ("diff_mask", [_vp] * 6 + [_int] * 3 + [_vp]),
     "ytpu_scatter_statics": ("statics", [_vp] * 7 + [_int] * 3 + [_vp]),
     "ytpu_batch_step": ("yata", [_vp] * 13 + [_int] * 7 + [_vp]),
-    "ytpu_batch_step_levels": ("yata", [_vp] * 15 + [_int] * 9 + [_vp]),
+    "ytpu_batch_step_levels": ("yata", [_vp] * 15 + [_int] * 9 + [_vp] * 2),
     "ytpu_batch_step_levels_shared": (
         "yata", [_vp] * 15 + [_int] * 9 + [_vp]
     ),
     "ytpu_apply_plan_shared": ("apply_lanes", [_vp] * 4 + [_int] * 6 + [_vp]),
     "ytpu_conflict_scan": ("conflict_scan", [_vp] * 12 + [_i64, _vp]),
     "ytpu_anchor_lookup": ("anchor_lookup", [_vp, _i64, _vp, _vp, _i64, _vp]),
+    "ytpu_shard_fold": ("shard_fold", [_vp, _int, _i64, _int, _vp, _vp]),
 }
+# the most partials one shard_fold launch takes (kMaxParts in the source)
+FOLD_MAX_PARTS = 64
 
 class KernelError(RuntimeError):
     """A CUDA kernel could not be built, loaded or launched, or a kernel
@@ -163,14 +166,20 @@ def _p(t: torch.Tensor):
     return _vp(t.data_ptr())
 
 
+def _opt(t):
+    return _vp(None) if t is None else _p(t)
+
+
 def apply_lanes(lanes, cum, right, deleted, starts, b, n1, s1,
-                k_dn, k_sp, k_h, k_d) -> None:
+                k_dn, k_sp, k_h, k_d, counter=None) -> None:
+    """``counter``: a shard's zeroed ``[2]`` int32 progress counter, or
+    None."""
     entry = (
         "ytpu_apply_lanes_i16" if lanes.dtype == torch.int16
         else "ytpu_apply_lanes_i32"
     )
     _call(entry, lanes.device, _p(lanes), _p(cum), _p(right), _p(deleted),
-          _p(starts), b, n1, s1, k_dn, k_sp, k_h, k_d)
+          _p(starts), b, n1, s1, k_dn, k_sp, k_h, k_d, _opt(counter))
 
 
 def scatter_rows(idx, new_right, new_deleted, new_starts, right, deleted,
@@ -215,18 +224,21 @@ def batch_step(cols, dyn, visit, splits, sched, dels, epoch_max) -> None:
 
 
 def batch_step_levels(cols, dyn, visit, fast, splits, lv, dels,
-                      scratch_base, epoch_max, shared: bool = False) -> None:
+                      scratch_base, epoch_max, shared: bool = False,
+                      counter=None) -> None:
     """``shared``: K7b — ``cols`` are ``[N+1]``, ``splits [S, 2]``, ``lv
-    [L, W, 8]`` and ``dels [D]``, read by every doc."""
+    [L, W, 8]`` and ``dels [D]``, read by every doc.  ``counter``: a
+    shard's zeroed ``[2]`` int32 progress counter (K6 only), or None."""
     right, _deleted, starts = dyn
     b, n1 = right.shape
     ax = 0 if shared else 1  # the schedules' first non-doc axis
     entry = "ytpu_batch_step_levels_shared" if shared else "ytpu_batch_step_levels"
+    progress = () if shared else (_opt(counter),)
     _call(entry, right.device,
           *_yata_tables(cols, dyn, visit), _p(fast), _p(splits), _p(lv),
           _p(dels), _p(scratch_base), b, n1, starts.shape[1],
           splits.shape[ax], lv.shape[ax], lv.shape[ax + 1], dels.shape[ax],
-          fast.shape[1], epoch_max)
+          fast.shape[1], epoch_max, *progress)
 
 
 def apply_plan_shared(lanes, right, deleted, starts, k_l, k_h, k_d) -> None:
@@ -247,3 +259,10 @@ def conflict_scan(doc_id, cols, left, right, run_id, tile_sum) -> None:
 def anchor_lookup(flat_key, q_key, out) -> None:
     _call("ytpu_anchor_lookup", q_key.device, _p(flat_key),
           flat_key.shape[0], _p(q_key), _p(out), q_key.shape[0])
+
+
+def shard_fold(parts, n, op, out) -> None:
+    """``parts``: at most :data:`FOLD_MAX_PARTS` int32 tensors of ``n``
+    elements on ``out``'s device; ``op`` 0 is SUM, 1 is MAX."""
+    ptrs = (_vp * len(parts))(*(t.data_ptr() for t in parts))
+    _call("ytpu_shard_fold", out.device, ptrs, len(parts), n, op, _p(out))

@@ -29,8 +29,16 @@ kernels' plain PyTorch versions serve.  The batched sync paths
 ``sync_step2_batch``) run the state-vector and diff-mask kernels.  On
 Python mirrors the default segment-planner mode co-plans each flush's
 cold docs in one chunk (:func:`.segment_planner.plan_chunk`), whose
-conflict scan and anchor lookup run on the engine's device too.  The
-mesh is a later slice of the port and raises ``NotImplementedError``.
+conflict scan and anchor lookup run on the engine's device too.
+
+``mesh=`` (a :class:`..parallel.DocMesh`) shards the doc batch: shard
+``s`` keeps docs ``[s * B_loc, (s + 1) * B_loc)`` in tables on its own
+device, each flush lane runs per shard with shard-local doc indices (the
+apply lane through ``sharded_apply_plan``, ``levels`` through
+``sharded_batch_step``), ``state_vectors_batched`` runs
+``sharded_state_vectors``, and the chunk planner's anchor lookup splits
+its queries over the shards.  Shards may share a device.  An unmeshed
+engine is the one-shard case of the same code.
 """
 
 from __future__ import annotations
@@ -48,6 +56,14 @@ from ..obs import EngineObs, new_flush_metrics
 from ..resilience import DeadLetterQueue, HealthTracker
 from ..updates import InvalidUpdate, validate_update
 from ..updates import apply_update, apply_update_v2
+from ..parallel.mesh import (
+    fold_metrics,
+    put_host,
+    shard_rows,
+    sharded_apply_plan,
+    sharded_batch_step,
+    sharded_state_vectors,
+)
 from .columns import NULL, DocMirror, UnsupportedUpdate
 from . import plan_cache
 from . import segment_planner
@@ -158,12 +174,6 @@ _STATIC_COLS = (
 )
 
 
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet ({where})"
-    )
-
-
 class _PhasePair:
     """Two stacked phase contexts without ExitStack overhead — _phase_ctx
     sits on the per-flush hot path (7 entries per flush)."""
@@ -201,19 +211,22 @@ _TORCH_DTYPE = {
 }
 
 
-def _is_ready(event) -> bool:
-    """Non-blocking completion probe of a dispatch marker (a CUDA event,
-    or None for work that ran synchronously on the CPU)."""
-    return event is None or event.query()
+def _is_ready(marker) -> bool:
+    """Non-blocking completion probe of a dispatch marker (a tuple of
+    CUDA events, one per device the work ran on, or None for work that
+    ran synchronously on the CPU)."""
+    return marker is None or all(e.query() for e in marker)
 
 
 class _StageSlot:
     """One half of the double-buffered staging pair: a reusable host
     lanes buffer (``host``, pinned on a CUDA engine; ``buf`` is its numpy
-    view, which the packers write) plus the CUDA event recorded right
-    after the host-to-device copy that last read it.  A ``non_blocking``
+    view, which the packers write; row ``s`` is shard ``s``'s lanes) plus
+    the CUDA events recorded right after the host-to-device copies that
+    last read it, one per device the rows went to.  A ``non_blocking``
     copy from pinned memory reads the buffer after the call returns, so
-    the host must not rewrite it until that event has completed."""
+    the host must not rewrite it until every one of those events has
+    completed."""
 
     __slots__ = ("buf", "host", "event")
 
@@ -295,9 +308,10 @@ class _FlushPipeline:
         self.max_depth = 0
         self.outstanding = 0
 
-    def _wait(self, event) -> None:
+    def _wait(self, marker) -> None:
         t0 = time.perf_counter()
-        event.synchronize()
+        for event in marker:
+            event.synchronize()
         self.t_device_wait_s += time.perf_counter() - t0
         self.outstanding = 0
 
@@ -326,9 +340,9 @@ class _FlushPipeline:
         return _PackTimer(self)
 
     def dispatched(self, marker, slot: _StageSlot | None = None) -> None:
-        """Book one device dispatch.  ``marker`` is a CUDA event recorded
-        after the dispatch's kernels (None when it ran synchronously on
-        the CPU)."""
+        """Book one device dispatch.  ``marker`` holds a CUDA event per
+        device, recorded after the dispatch's kernels (None when it ran
+        synchronously on the CPU)."""
         self.n_dispatches += 1
         if self.sync:
             if marker is not None:
@@ -354,9 +368,12 @@ class BatchEngine:
         name is passed; any number of root text/list/map types per doc —
         and the shared types nested inside them — are integrated on
         device (subdocs fall back to the CPU core per doc).
+    mesh: a :class:`..parallel.DocMesh` to shard the doc batch over
+        (``n_docs`` a multiple of its first axis' size), or None.
     device: where the resident tables live: ``None`` (the default) is
         the CUDA device and raises ``RuntimeError`` without CUDA;
-        ``"cpu"`` runs the kernels' plain PyTorch versions.
+        ``"cpu"`` runs the kernels' plain PyTorch versions.  On a mesh
+        it is the mesh's first device (another ``device`` raises).
     """
 
     def __init__(
@@ -371,12 +388,46 @@ class BatchEngine:
     ):
         if policy not in ("auto", "cpu", "device"):
             raise ValueError(f"unknown policy {policy!r}")
+        shard_devs = None
         if mesh is not None:
-            raise _not_ported(
-                "the doc-sharded mesh", "ROADMAP queue 1, item 10"
-            )
+            doc_axis = mesh.axis_names[0]
+            axis_size = mesh.shape[doc_axis]
+            if n_docs % axis_size != 0:
+                raise ValueError(
+                    f"n_docs={n_docs} must be a multiple of the {doc_axis!r} "
+                    f"axis size {axis_size}"
+                )
+            shard_devs = mesh.axis_devices(doc_axis)
+            if len({d.type for d in shard_devs}) != 1:
+                raise ValueError("a mesh's shards must share a device type")
+            want = None if device is None else torch.device(device)
+            if want is not None and (
+                want.type != shard_devs[0].type
+                or want.index not in (None, shard_devs[0].index)
+            ):
+                raise ValueError(
+                    f"device={device!r} conflicts with the mesh's first "
+                    f"device {shard_devs[0]}"
+                )
+            device = shard_devs[0]
         self.device = kernels.resolve_device(device, "BatchEngine")
         self._cuda = self.device.type == "cuda"
+        # the doc shards: shard s holds docs [s*b_loc, (s+1)*b_loc) on
+        # _shard_devs[s] (one shard on self.device without a mesh)
+        self._shard_devs = shard_devs or [self.device]
+        self._b_loc = n_docs // len(self._shard_devs)
+        self._mesh_devs = list(dict.fromkeys(self._shard_devs))
+        # sharded callables: the bulk apply keyed by lane widths, the
+        # state vectors by n_slots (as the reference caches its jits)
+        self._sharded_step = (
+            None if mesh is None
+            else sharded_batch_step(mesh, mesh.axis_names[0])
+        )
+        self._sharded_apply: dict[tuple, object] = {}
+        self._sharded_sv: dict[int, object] = {}
+        # per-shard [2] progress counters of the last sharded flush,
+        # folded lazily by last_metrics (None: unsharded or seq flush)
+        self._counters: list | None = None
         self.n_docs = n_docs
         self.root_name = root_name
         self.mesh = mesh
@@ -430,15 +481,16 @@ class BatchEngine:
         # device read-back: doc -> (right, deleted, seg_heads) rows
         self._pending_hydration: dict[int, tuple] = {}
         # persistent device state (no left-link array: order is ranked from
-        # right links with a host-known membership mask)
+        # right links with a host-known membership mask), per shard:
+        # [right [b_loc, N+1] i32, deleted [b_loc, N+1] bool, starts
+        # [b_loc, S+1] i32] on the shard's device
         self._cap = 0  # row capacity N (arrays are [B, N+1] with scratch row)
         self._seg_cap = 0  # segment capacity S (starts is [B, S+1])
-        self._right = None
-        self._deleted = None
-        self._starts = None
+        self._tabs: list | None = None
         # resident immutable columns, updated by per-flush row scatters —
         # steady-state flush transfer scales with the DELTA, not with B*cap
-        self._statics: dict | None = None
+        # (per shard: a dict of [b_loc, N+1] int32 columns)
+        self._stat: list | None = None
         # rows per doc already uploaded and still valid on device
         self._uploaded_rows = [0] * n_docs
         # pipelined flush state: double-buffered staging pair (pinned on
@@ -752,37 +804,87 @@ class BatchEngine:
     # -- device placement ---------------------------------------------------
 
     def _put_r(self, x) -> torch.Tensor:
-        """Place a host array on the engine's device: a ``non_blocking``
-        copy from pinned memory on CUDA (the caching host allocator keeps
-        the pinned copy alive until the transfer has read it), a
-        zero-copy view on the CPU, where every kernel consumes its
+        """Place a host array on the engine's (first) device: a
+        ``non_blocking`` copy from pinned memory on CUDA (the caching host
+        allocator keeps the pinned copy alive until the transfer has read
+        it), a zero-copy view on the CPU, where every kernel consumes its
         inputs before returning."""
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if not self._cuda:
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return put_host(x, self.device)
 
-    def _put_staged(self, slot: _StageSlot) -> torch.Tensor:
-        """Place the staged lanes row of ``slot`` on the device and fence
-        the slot's buffer with an event recorded right after the copy
-        (``_FlushPipeline.acquire`` waits on it before a rewrite)."""
-        host = slot.host[0]
+    def _put_b(self, x) -> list:
+        """Place a batch-leading ``[B, ...]`` host array: split on the doc
+        axis, each shard's block on its device."""
+        return shard_rows(x, self._shard_devs)
+
+    def _put_shards(self, arrays) -> list:
+        """Per-shard host arrays (None: nothing for that shard), each
+        placed on its shard's device."""
+        return [
+            None if a is None else put_host(a, dev)
+            for a, dev in zip(arrays, self._shard_devs)
+        ]
+
+    def _put_staged(self, slot: _StageSlot) -> list:
+        """Place the staged lanes rows of ``slot`` (row ``s`` for shard
+        ``s``) on the shards' devices and fence the slot's buffer with an
+        event per device recorded right after the copies
+        (``_FlushPipeline.acquire`` waits on them before a rewrite)."""
+        host = slot.host
         if not self._cuda:
-            return host
-        dev = host.to(self.device, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        slot.event = event
-        return dev
+            return list(host)
+        rows = [
+            host[s].to(dev, non_blocking=True)
+            for s, dev in enumerate(self._shard_devs)
+        ]
+        slot.event = self._marker()
+        return rows
 
     def _marker(self):
-        """Dispatch marker: a CUDA event recorded after the work enqueued
-        so far (None on the CPU, where it has already run)."""
+        """Dispatch marker: one CUDA event per device of the engine,
+        recorded after the work enqueued so far on its current stream
+        (None on the CPU, where it has already run)."""
         if not self._cuda:
             return None
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return event
+        events = []
+        for dev in self._mesh_devs:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+            events.append(event)
+        return tuple(events)
+
+    def _table(self, k: int):
+        if self._tabs is None:
+            return None
+        if len(self._tabs) == 1:
+            return self._tabs[0][k]
+        return torch.cat([t[k].to(self.device) for t in self._tabs])
+
+    # whole-batch views of the resident tables: the tensors themselves
+    # without a mesh, a gathered copy on the first device with one (read
+    # only; the engine writes self._tabs / self._stat per shard)
+    _right = property(lambda self: self._table(0))
+    _deleted = property(lambda self: self._table(1))
+    _starts = property(lambda self: self._table(2))
+
+    @property
+    def _statics(self) -> dict | None:
+        if self._stat is None:
+            return None
+        if len(self._stat) == 1:
+            return self._stat[0]
+        return {
+            key: torch.cat([st[key].to(self.device) for st in self._stat])
+            for key in self._stat[0]
+        }
+
+    def shard_tables(self) -> list:
+        """Per shard, its device tables ``[right, deleted, starts]`` and
+        statics dict (None before the first levels/seq flush): the
+        tensors themselves, on the shard's device."""
+        if self._tabs is None:
+            return []
+        stat = self._stat or [None] * len(self._tabs)
+        return [(list(t), st) for t, st in zip(self._tabs, stat)]
 
     # -- device state management -------------------------------------------
 
@@ -792,73 +894,78 @@ class BatchEngine:
         if (
             cap <= self._cap
             and seg_cap <= self._seg_cap
-            and self._right is not None
+            and self._tabs is not None
         ):
             return
-        b = self.n_docs
+        b = self._b_loc
         old_cap, old_seg = self._cap, self._seg_cap
         self._cap = max(cap, self._cap)
         self._seg_cap = max(seg_cap, self._seg_cap)
 
-        # allocate/grow ON DEVICE (no host fill shipped over the link)
-        def fresh(shape, fill, dtype):
-            return torch.full(shape, fill, dtype=dtype, device=self.device)
+        # allocate/grow ON DEVICE (no host fill shipped over the link),
+        # every shard at once: capacity is one for the whole batch
+        def fresh(shape, fill, dtype, dev):
+            return torch.full(shape, fill, dtype=dtype, device=dev)
 
         def grow(old, old_w, new_w, fill, dtype):
-            out = fresh((b, new_w), fill, dtype)
+            out = fresh((old.shape[0], new_w), fill, dtype, old.device)
             if old_w:
                 out[:, :old_w] = old[:, :old_w]
             return out
 
-        if self._right is None:
-            self._right = fresh((b, self._cap + 1), NULL, torch.int32)
-            self._deleted = fresh((b, self._cap + 1), False, torch.bool)
-            self._starts = fresh((b, self._seg_cap + 1), NULL, torch.int32)
+        if self._tabs is None:
+            self._tabs = [
+                [
+                    fresh((b, self._cap + 1), NULL, torch.int32, dev),
+                    fresh((b, self._cap + 1), False, torch.bool, dev),
+                    fresh((b, self._seg_cap + 1), NULL, torch.int32, dev),
+                ]
+                for dev in self._shard_devs
+            ]
         else:
             # old scratch column (index old_cap) resets to padding
-            self._right = grow(
-                self._right, old_cap, self._cap + 1, NULL, torch.int32
-            )
-            self._deleted = grow(
-                self._deleted, old_cap, self._cap + 1, False, torch.bool
-            )
-            self._starts = grow(
-                self._starts, old_seg, self._seg_cap + 1, NULL, torch.int32
-            )
+            for t in self._tabs:
+                t[0] = grow(t[0], old_cap, self._cap + 1, NULL, torch.int32)
+                t[1] = grow(t[1], old_cap, self._cap + 1, False, torch.bool)
+                t[2] = grow(t[2], old_seg, self._seg_cap + 1, NULL,
+                            torch.int32)
         # a grown table is a fresh allocation, so this flush cannot have
         # updated device state purely in place
-        self._flush_realloc_bytes += int(
-            self._right.nbytes + self._deleted.nbytes + self._starts.nbytes
+        self._flush_realloc_bytes += sum(
+            int(x.nbytes) for t in self._tabs for x in t
         )
         # grow the resident statics on the device (padded at the end, as
         # jnp.pad does: the old scratch column keeps its contents).
         # Allocation is lazy: the apply lane never reads them, so an
         # apply-only engine spends no device memory or transfer on statics
         # (_ensure_statics allocates on the first levels/seq flush)
-        if self._statics is not None:
-            for key, fill, _dtype in _STATIC_COLS:
-                old = self._statics[key]
-                self._statics[key] = grow(
-                    old, old.shape[1], self._cap + 1, fill, torch.int32
-                )
-            self._flush_realloc_bytes += int(
-                sum(v.nbytes for v in self._statics.values())
+        if self._stat is not None:
+            for st in self._stat:
+                for key, fill, _dtype in _STATIC_COLS:
+                    old = st[key]
+                    st[key] = grow(
+                        old, old.shape[1], self._cap + 1, fill, torch.int32
+                    )
+            self._flush_realloc_bytes += sum(
+                int(v.nbytes) for st in self._stat for v in st.values()
             )
 
     def _ensure_statics(self) -> None:
-        if self._statics is not None:
+        if self._stat is not None:
             return
-        b = self.n_docs
-        self._statics = {
-            key: torch.full((b, self._cap + 1), fill, dtype=torch.int32,
-                            device=self.device)
-            for key, fill, _dtype in _STATIC_COLS
-        }
-        self._flush_realloc_bytes += int(
-            sum(v.nbytes for v in self._statics.values())
+        self._stat = [
+            {
+                key: torch.full((self._b_loc, self._cap + 1), fill,
+                                dtype=torch.int32, device=dev)
+                for key, fill, _dtype in _STATIC_COLS
+            }
+            for dev in self._shard_devs
+        ]
+        self._flush_realloc_bytes += sum(
+            int(v.nbytes) for st in self._stat for v in st.values()
         )
         # everything must (re-)upload into the fresh columns
-        self._uploaded_rows = [0] * b
+        self._uploaded_rows = [0] * self.n_docs
 
     def _upload_statics(self, plans) -> None:
         """Scatter this flush's statics delta (its own dispatch, ahead of
@@ -869,11 +976,13 @@ class BatchEngine:
             with self._phase_ctx("statics_pack"):
                 packed = self._statics_delta(plans)
             if packed is not None:
-                self._dispatch("statics", self._put_r(packed))
+                self._dispatch("statics", self._put_shards(packed))
 
     def _statics_delta(self, plans):
-        """This flush's NEW/changed rows as one packed [8, K] i32 block
-        (doc, row, six value columns; client_key as its bit pattern).
+        """This flush's NEW/changed rows as one packed [8, K] i32 block a
+        shard (shard-local doc, row, six value columns; client_key as its
+        bit pattern; None for a shard without new rows), or None when no
+        shard has any.
 
         A doc's immutable columns only change by appending rows — except
         when a pre-split cuts an existing run (origin_row coverage moves to
@@ -898,23 +1007,35 @@ class BatchEngine:
             return None
         d = np.concatenate(doc_idx)
         r = np.concatenate(row_idx)
-        # pad to a lane bucket (bounded distinct shapes, as the JAX engine
-        # bounds its compiles); padding lanes write the fills to the
-        # scratch row (index cap) of doc 0, whose contents are never read
-        total = len(d)
-        padded = _bucket_lanes(total, 64)
-        packed = np.empty((2 + len(_STATIC_COLS), padded), np.int32)
-        packed[0, :total] = d
-        packed[0, total:] = 0
-        packed[1, :total] = r
-        packed[1, total:] = self._cap
-        for j, (k, fill, dtype) in enumerate(_STATIC_COLS):
-            v = np.concatenate(vals[k])
+        v = {}
+        for k, _fill, dtype in _STATIC_COLS:
+            v[k] = np.concatenate(vals[k])
             if dtype == "uint32":
-                v = v.astype(np.uint32).view(np.int32)
-            packed[2 + j, :total] = v
-            packed[2 + j, total:] = fill
-        return packed
+                v[k] = v[k].astype(np.uint32).view(np.int32)
+        n_shards = len(self._shard_devs)
+        shard = d // self._b_loc if n_shards > 1 else None
+        out = []
+        for s in range(n_shards):
+            sel = slice(None) if shard is None else shard == s
+            total = len(d) if shard is None else int(sel.sum())
+            if not total:
+                out.append(None)
+                continue
+            # pad to a lane bucket (bounded distinct shapes, as the JAX
+            # engine bounds its compiles); padding lanes write the fills to
+            # the scratch row (index cap) of the shard's doc 0, whose
+            # contents are never read
+            padded = _bucket_lanes(total, 64)
+            packed = np.empty((2 + len(_STATIC_COLS), padded), np.int32)
+            packed[0, :total] = d[sel] - s * self._b_loc
+            packed[0, total:] = 0
+            packed[1, :total] = r[sel]
+            packed[1, total:] = self._cap
+            for j, (k, fill, _dtype) in enumerate(_STATIC_COLS):
+                packed[2 + j, :total] = v[k][sel]
+                packed[2 + j, total:] = fill
+            out.append(packed)
+        return out
 
     # -- compaction ---------------------------------------------------------
 
@@ -931,7 +1052,7 @@ class BatchEngine:
             if i not in self.fallback
             and m.n_rows >= max(self.compact_min_rows, 2 * self._rows_at_compact[i])
         ]
-        if not todo or self._right is None:
+        if not todo or self._tabs is None:
             return
         self.last_compaction = self._compact_rows(todo, self.gc)
 
@@ -944,7 +1065,6 @@ class BatchEngine:
         decided WITHOUT any device read-back; the device gets the
         rebuilt rows in one write-only scatter — a gather+readback cycle
         would be the 100k-doc scaling liability."""
-        idx = self._put_r(np.asarray(todo, np.int32))
         cap1 = self._cap + 1
         seg1 = self._seg_cap + 1
         new_right = np.full((len(todo), cap1), NULL, np.int32)
@@ -966,11 +1086,27 @@ class BatchEngine:
             stats.append(
                 {"doc": i, "rows_before": old_n, "rows_after": n_new}
             )
-        self._dispatch(
-            "rows", idx, self._put_r(new_right), self._put_r(new_deleted),
-            self._put_r(new_starts),
-        )
+        self._scatter_rows(todo, new_right, new_deleted, new_starts)
         return stats
+
+    def _scatter_rows(self, todo, new_right, new_deleted, new_starts):
+        """Dispatch the whole-row replacement of docs ``todo`` by the host
+        rows aligned with it: each shard gets its own docs' rows, indexed
+        shard-locally, on its device (one scatter a shard)."""
+        todo = np.asarray(todo, np.int64)
+        shard = todo // self._b_loc
+        args = []
+        for s, dev in enumerate(self._shard_devs):
+            sel = np.nonzero(shard == s)[0]
+            if not len(sel):
+                args.append(None)
+                continue
+            rows = (new_right, new_deleted, new_starts)
+            if len(sel) < len(todo):
+                rows = tuple(a[sel] for a in rows)
+            idx = (todo[sel] - s * self._b_loc).astype(np.int32)
+            args.append(tuple(put_host(a, dev) for a in (idx, *rows)))
+        self._dispatch("rows", args)
 
     def compact_docs(self, docs, gc: bool = True) -> list[dict]:
         """Forced tombstone/GC compaction of specific docs (the tier GC
@@ -987,7 +1123,7 @@ class BatchEngine:
             and not self.mirrors[i]._incoming
             and self.mirrors[i].n_rows > 0
         ]
-        if not todo or self._right is None:
+        if not todo or self._tabs is None:
             return []
         stats = self._compact_rows(todo, gc)
         self.last_compaction = stats
@@ -1049,7 +1185,7 @@ class BatchEngine:
         pend = self._pending_hydration
         self._pending_hydration = {}
         todo = sorted(pend)
-        if self._right is None:
+        if self._tabs is None:
             self._ensure_capacity(1, 1)
         cap1 = self._cap + 1
         seg1 = self._seg_cap + 1
@@ -1061,15 +1197,11 @@ class BatchEngine:
             new_right[j, : len(r)] = r
             new_deleted[j, : len(d)] = d
             new_starts[j, : len(h)] = h
-        idx = self._put_r(np.asarray(todo, np.int32))
         # hydrations land as stage-0 dispatches of the flush pipeline (or
         # immediately before a device read-back): the in-place row scatter
         # sequences ahead of this flush's apply dispatches on the device
         # stream, so the apply kernels always see hydrated rows
-        self._dispatch(
-            "rows", idx, self._put_r(new_right), self._put_r(new_deleted),
-            self._put_r(new_starts),
-        )
+        self._scatter_rows(todo, new_right, new_deleted, new_starts)
 
     def reset_doc(self, doc: int) -> None:
         """Return one slot to its just-constructed state (provider
@@ -1089,13 +1221,15 @@ class BatchEngine:
         self._active_docs.discard(doc)
         self._event_listeners.pop(doc, None)
         self.health.reset(doc)
-        if self._right is not None:
+        if self._tabs is not None:
             # blank the slot's device rows in place (same fills as the
             # initial allocation); statics re-upload from row 0 is
             # already forced by _uploaded_rows above
-            self._right[doc].fill_(NULL)
-            self._deleted[doc].fill_(False)
-            self._starts[doc].fill_(NULL)
+            s, li = divmod(doc, self._b_loc)
+            right, deleted, starts = self._tabs[s]
+            right[li].fill_(NULL)
+            deleted[li].fill_(False)
+            starts[li].fill_(NULL)
 
     # -- flush: run one device integration step ----------------------------
 
@@ -1149,17 +1283,15 @@ class BatchEngine:
         """Refresh the ytpu_prof device-memory gauges from the persistent
         device buffers (cost attribution).  Reads tensor metadata only —
         no device sync."""
-        right = self._right
-        if right is None:
+        if self._tabs is None:
             return
         tables = {
-            "right_link": int(right.nbytes),
-            "deleted": int(self._deleted.nbytes),
-            "starts": int(self._starts.nbytes),
+            name: sum(int(t[k].nbytes) for t in self._tabs)
+            for k, name in enumerate(("right_link", "deleted", "starts"))
         }
-        if self._statics is not None:
-            tables["statics"] = int(
-                sum(v.nbytes for v in self._statics.values())
+        if self._stat is not None:
+            tables["statics"] = sum(
+                int(v.nbytes) for st in self._stat for v in st.values()
             )
         self.obs.device_memory(
             tables,
@@ -1317,6 +1449,7 @@ class BatchEngine:
                                 for (_i, m, _k, t) in chunk_cold
                             ],
                             mode=seg_mode,
+                            mesh=self.mesh,
                             device=self.device,
                         )
                     except kernels.KernelError:
@@ -1485,13 +1618,14 @@ class BatchEngine:
             )
 
             self._upload_statics(plans)
-            statics = self._statics
+            statics = self._stat
         t_pack = time.perf_counter()
         with self._phase_ctx("dispatch"):
             if mode == "seq":
+                self._counters = None  # no sharded counters this flush
                 self._dispatch(
-                    "seq", statics, self._put_r(splits), self._put_r(sched),
-                    self._put_r(dels),
+                    "seq", statics, self._put_b(splits), self._put_b(sched),
+                    self._put_b(dels),
                 )
             else:
                 # blockwise over the level axis: levels are causally
@@ -1507,19 +1641,20 @@ class BatchEngine:
                 )
                 empty_splits = empty_dels = None
                 if n_lv > block:  # multi-block: cache the no-op inputs
-                    empty_splits = self._put_r(
+                    empty_splits = self._put_b(
                         np.full((b, 1, 2), NULL, np.int32)
                     )
-                    empty_dels = self._put_r(np.full((b, 1), NULL, np.int32))
-                scratch_d = self._put_r(scratch_base)
+                    empty_dels = self._put_b(np.full((b, 1), NULL, np.int32))
+                scratch_d = self._put_b(scratch_base)
+                self._counters = None  # the level blocks' counters add up
                 for c0 in range(0, n_lv, block):
                     c1 = min(n_lv, c0 + block)
                     self._dispatch(
                         "levels",
                         statics,
-                        self._put_r(splits) if c0 == 0 else empty_splits,
-                        self._put_r(lv_sched[:, c0:c1]),
-                        self._put_r(dels) if c1 == n_lv else empty_dels,
+                        self._put_b(splits) if c0 == 0 else empty_splits,
+                        self._put_b(lv_sched[:, c0:c1]),
+                        self._put_b(dels) if c1 == n_lv else empty_dels,
                         scratch_d,
                     )
         t_dispatch = time.perf_counter()
@@ -1599,39 +1734,65 @@ class BatchEngine:
         staging-buffer fences, sync A/B mode) and any future kernel
         change land exactly once.
 
-        kinds:
+        kinds (every array argument is a list with one entry a shard, on
+        its device; doc indices are shard-local):
           "lanes"   (lanes, key)                    bulk-apply scatter
           "seq"     (statics, splits, sched, dels)  sequential YATA step
           "levels"  (statics, splits, lv_block, dels, scratch)  one
-                    level-axis block
+                    level-axis block (sharded or not; a mesh's progress
+                    counters add up across blocks)
           "statics" (packed,)                       resident-column delta
-          "rows"    (idx, right, deleted, starts)   whole-row rebuild
+          "rows"    (args,)                         whole-row rebuild:
+                    (idx, right, deleted, starts) a shard, or None
 
         ``slot`` is the staging buffer a "lanes" dispatch consumes: its
-        row is copied to the device here and fenced for reuse.  The other
-        kinds' args are already device-placed by the caller (_put_r)."""
-        dyn = (self._right, self._deleted, self._starts)
+        rows are copied to the shards' devices here and fenced for reuse.
+        The other kinds' args are already device-placed by the caller."""
+        tabs = [tuple(t) for t in self._tabs]
         if kind == "lanes":
             lanes, key = args
             k_dn, k_sp, k_h, k_d = key
-            lanes_dev = (
+            rows = (
                 self._put_staged(slot) if slot is not None
-                else self._put_r(lanes[0])
+                else self._put_b(lanes)
             )
-            kernels.apply_plan2(dyn, lanes_dev, k_dn, k_sp, k_h, k_d)
+            self._counters = None
+            if self.mesh is not None:
+                fn = self._sharded_apply.get(key)
+                if fn is None:
+                    fn = sharded_apply_plan(
+                        self.mesh, self.mesh.axis_names[0], *key
+                    )
+                    self._sharded_apply[key] = fn
+                _, self._counters = fn(tabs, rows)
+            else:
+                kernels.apply_plan2(tabs[0], rows[0], k_dn, k_sp, k_h, k_d)
         elif kind == "seq":
             statics, splits, sched, dels = args
-            kernels.batch_step(statics, dyn, splits, sched, dels)
+            for s, dyn in enumerate(tabs):
+                kernels.batch_step(statics[s], dyn, splits[s], sched[s],
+                                   dels[s])
         elif kind == "levels":
-            kernels.batch_step_levels(args[0], dyn, *args[1:])
+            if self._sharded_step is not None:
+                # counters stay on the device (reading them would block
+                # the async dispatch); they add up across level blocks
+                _, self._counters = self._sharded_step(
+                    args[0], tabs, *args[1:], counters=self._counters
+                )
+            else:
+                kernels.batch_step_levels(
+                    args[0][0], tabs[0], *(a[0] for a in args[1:])
+                )
         elif kind == "statics":
             (packed,) = args
-            kernels.scatter_statics(self._statics, packed)
+            for st, p in zip(self._stat, packed):
+                if p is not None:
+                    kernels.scatter_statics(st, p)
         elif kind == "rows":
-            idx, new_right, new_deleted, new_starts = args
-            kernels.scatter_rows(
-                *dyn, idx, new_right, new_deleted, new_starts
-            )
+            (per_shard,) = args
+            for dyn, a in zip(tabs, per_shard):
+                if a is not None:
+                    kernels.scatter_rows(*dyn, *a)
         else:  # pragma: no cover - programming error
             raise ValueError(f"unknown dispatch kind {kind!r}")
         self._pl.dispatched(self._marker(), slot)
@@ -1656,10 +1817,9 @@ class BatchEngine:
         by _flush's plan phase, already doc-ordered)."""
         pl = self._pl
         chunk_sz = int(os.environ.get("YTPU_FLUSH_CHUNK", "256"))
-        # one binning shard: the lanes layout keeps its shard axis so the
-        # mesh slice can bin per device without a new format
-        n_shards = 1
-        b_loc = self.n_docs
+        # the lanes buffer has one row a doc shard (one without a mesh)
+        n_shards = len(self._shard_devs)
+        b_loc = self._b_loc
         t_plan_acc = t_pack_acc = t_disp_acc = 0.0
         seg_base = plan_segment_stats() if native else (0, 0)
         stats_tot = np.zeros(4, np.int64)
@@ -2073,6 +2233,18 @@ class BatchEngine:
         return slot, (k_dn, k_sp, k_h, k_d), stats, max_rows
 
     @property
+    def last_metrics(self) -> dict | None:
+        """Global progress counters of the last sharded flush:
+        ``integrated`` (apply lane: dense plus sparse links; levels:
+        schedule lanes) and ``deleted``, each shard's device counter
+        summed by the shard-fold kernel when read (the reference's psum;
+        reading synchronises).  None after an unsharded or ``seq``
+        flush."""
+        if self._counters is None:
+            return None
+        return fold_metrics(self._counters)
+
+    @property
     def last_flush_metrics(self) -> dict | None:
         """Host-side per-phase timers + batch stats of the newest flush —
         the compatibility view over the obs flush-history ring (the SAME
@@ -2133,17 +2305,19 @@ class BatchEngine:
                 dele_l.append(r in host_deleted)
                 r = nxt[r]
             return np.asarray(rows_l, np.int64), np.asarray(dele_l, bool)
-        if self._right is None:
+        if self._tabs is None:
             return np.zeros(0, np.int64), np.zeros(0, bool)
         self._apply_pending_hydrations()  # device read-back must see them
-        valid_host = np.zeros(self._right.shape[1], bool)
+        s, li = divmod(doc, self._b_loc)  # the doc's row on its shard
+        right, deleted_t, _starts = self._tabs[s]
+        valid_host = np.zeros(right.shape[1], bool)
         n = m.n_rows
         if n:
             valid_host[:n] = np.asarray(m.row_seg[:n], np.int32) == seg
         d = kernels.list_ranks(
-            self._right[doc : doc + 1], self._put_r(valid_host[None])
+            right[li : li + 1], put_host(valid_host[None], right.device)
         )[0].cpu().numpy()
-        deleted = self._deleted[doc].cpu().numpy()
+        deleted = deleted_t[li].cpu().numpy()
         rows = np.nonzero(d >= 0)[0]
         # larger distance-to-tail = earlier in the document
         rows = rows[np.argsort(-d[rows], kind="stable")]
@@ -2801,9 +2975,26 @@ class BatchEngine:
                 max(1, max(len(self.mirrors[i].client_of_slot) for i in dev_docs)),
                 4,
             )
-            sv = kernels.state_vector_kernel(
-                self._put_r(row_slot), self._put_r(row_end), n_slots
-            ).cpu().numpy()
+            if self.mesh is not None:
+                # the sharded segment max: pad the doc subset to the doc
+                # axis, compute shard-locally, gather
+                pad = (-len(dev_docs)) % len(self._shard_devs)
+                if pad:
+                    row_slot = np.pad(
+                        row_slot, ((0, pad), (0, 0)), constant_values=NULL
+                    )
+                    row_end = np.pad(row_end, ((0, pad), (0, 0)))
+                f = self._sharded_sv.get(n_slots)
+                if f is None:
+                    f = sharded_state_vectors(
+                        self.mesh, n_slots, self.mesh.axis_names[0]
+                    )
+                    self._sharded_sv[n_slots] = f
+                sv = f(row_slot, row_end).cpu().numpy()
+            else:
+                sv = kernels.state_vector_kernel(
+                    self._put_r(row_slot), self._put_r(row_end), n_slots
+                ).cpu().numpy()
             for r, (j, i) in enumerate(dev):
                 m = self.mirrors[i]
                 out[j] = {

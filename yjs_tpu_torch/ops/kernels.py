@@ -61,6 +61,16 @@ package's name for its device path, pads the columns to a power-of-two
 length, copies them to ``device`` (the CUDA device unless told
 otherwise), runs the wrapper and copies back.
 
+The doc mesh (:mod:`yjs_tpu_torch.parallel`) runs these kernels per
+shard.  Two wrappers here serve it:
+
+- :func:`shard_fold` folds equal per-shard int32 partials by SUM or
+  MAX (the reference's ``psum`` of the sharded steps' progress counters,
+  which :func:`apply_lanes` and :func:`batch_step_levels` count into a
+  shard's ``counter``, and ``pmax`` over a ``rows`` axis);
+- :func:`sharded_anchor_lookup` runs :func:`anchor_lookup` on each
+  shard's query block (the chunk planner's sharded lookup).
+
 A kernel that cannot be built, loaded or launched, or a CUDA device
 asked for on a host without one, raises :class:`KernelError`.
 """
@@ -85,6 +95,8 @@ launches = {
     "scatter_statics": 0, "batch_step": 0, "batch_step_levels": 0,
     "apply_plan_shared": 0, "batch_step_levels_shared": 0,
     "conflict_scan": 0, "conflict_scan_chunk": 0, "anchor_lookup": 0,
+    "sharded_apply_plan": 0, "sharded_batch_step": 0,
+    "sharded_state_vectors": 0, "sharded_lookup": 0, "shard_fold": 0,
 }
 
 
@@ -153,11 +165,20 @@ def _drop_set(table: torch.Tensor, d: torch.Tensor, r: torch.Tensor,
     table.index_put_((d.long()[keep], r[keep]), v[keep].to(table.dtype))
 
 
-def apply_lanes_plain(dyn, lanes, k_dn, k_sp, k_h, k_d):
+def _add_progress(counter, integrated, deleted) -> None:
+    """``counter += [integrated, deleted]`` in int32 (wrapping, as the
+    reference's int32 sums do)."""
+    counter.add_(torch.stack([integrated, deleted]).to(torch.int32))
+
+
+def apply_lanes_plain(dyn, lanes, k_dn, k_sp, k_h, k_d, counter=None):
     """Plain PyTorch version of :func:`apply_lanes` (in place)."""
     right_link, deleted, starts = dyn
     lanes = lanes.to(torch.int32)
     b = right_link.shape[0]
+    if counter is not None:
+        _add_progress(counter, lanes[: 2 * b].sum(),
+                      lanes[3 * b : 4 * b].sum())
     n1 = right_link.shape[1]
     o = 4 * b
     cnt_dn, cnt_sp = lanes[0:b], lanes[b : 2 * b]
@@ -182,7 +203,7 @@ def apply_lanes_plain(dyn, lanes, k_dn, k_sp, k_h, k_d):
     return right_link, deleted, starts
 
 
-def apply_lanes(dyn, lanes, k_dn, k_sp, k_h, k_d):
+def apply_lanes(dyn, lanes, k_dn, k_sp, k_h, k_d, counter=None):
     """Scatter one lanes buffer into the resident tables, in place.
 
     lanes layout (one i32 or i16 vector):
@@ -191,10 +212,13 @@ def apply_lanes(dyn, lanes, k_dn, k_sp, k_h, k_d):
       [r|v]*k_sp        sparse link writes at explicit rows
       [s|v]*k_h         segment-head writes
       [r]*k_d           delete marks
-    Out-of-bounds targets (padding) are dropped.  Returns ``dyn``."""
+    Out-of-bounds targets (padding) are dropped.  ``counter`` (a shard of
+    the doc mesh, K14): a ``[2]`` int32 tensor that gains the dense plus
+    sparse counts' sum and the delete counts' sum.  Returns ``dyn``."""
     right_link, deleted, starts = dyn
-    if not _on_cuda(right_link, deleted, starts, lanes):
-        return apply_lanes_plain(dyn, lanes, k_dn, k_sp, k_h, k_d)
+    ins = (right_link, deleted, starts, lanes)
+    if not _on_cuda(*ins, *(() if counter is None else (counter,))):
+        return apply_lanes_plain(dyn, lanes, k_dn, k_sp, k_h, k_d, counter)
     from . import _cuda
 
     _check(right_link, "right_link", (torch.int32,), 2)
@@ -206,10 +230,14 @@ def apply_lanes(dyn, lanes, k_dn, k_sp, k_h, k_d):
         raise ValueError("table shapes disagree")
     if lanes.shape[0] != 4 * b + k_dn + 2 * k_sp + 2 * k_h + k_d:
         raise ValueError("lanes length does not match the section widths")
+    if counter is not None:
+        _check(counter, "counter", (torch.int32,), 1)
+        if counter.shape[0] != 2:
+            raise ValueError("counter must be [2]")
     cum = torch.empty(4 * b, dtype=torch.int32, device=lanes.device)
     _cuda.apply_lanes(
         lanes, cum, right_link, deleted, starts, b, n1, starts.shape[1],
-        k_dn, k_sp, k_h, k_d,
+        k_dn, k_sp, k_h, k_d, counter,
     )
     launches["apply_lanes"] += 1
     return right_link, deleted, starts
@@ -749,10 +777,13 @@ def batch_step(statics, dyn, splits, sched, delete_rows):
 
 
 def batch_step_levels_plain(statics, dyn, splits, lv_sched, delete_rows,
-                            scratch_base, stats=None):
+                            scratch_base, stats=None, counter=None):
     """Plain PyTorch version of :func:`batch_step_levels` (in place)."""
     right, deleted, starts = dyn
     b, n1 = right.shape
+    if counter is not None:
+        _add_progress(counter, (lv_sched[..., 0] >= 0).sum(),
+                      (delete_rows >= 0).sum())
     s1 = starts.shape[1]
     dev = right.device
     _split_prepass_plain(right, deleted, splits, stats)
@@ -817,7 +848,7 @@ def batch_step_levels_plain(statics, dyn, splits, lv_sched, delete_rows,
 
 @profiled("batch_step_levels")
 def batch_step_levels(statics, dyn, splits, lv_sched, delete_rows,
-                      scratch_base):
+                      scratch_base, counter=None):
     """The level-parallel YATA step of every doc (``YTPU_KERNEL=levels``),
     in place: the split pre-pass; then per level of ``lv_sched`` (``[B,
     L, W, 8]`` rows of row, left, right, check, succ, seg, fb_left,
@@ -828,10 +859,14 @@ def batch_step_levels(statics, dyn, splits, lv_sched, delete_rows,
     integrate in ascending lane order; then the deletes.
 
     ``scratch_base [B]`` is each doc's row count: the engine keeps 2W
-    spare rows past it.  Returns ``dyn``."""
+    spare rows past it.  ``counter`` (a shard of the doc mesh, K15): a
+    ``[2]`` int32 tensor that gains the count of schedule lanes with a
+    row (``lv_sched[..., 0] >= 0``) and of delete rows (``>= 0``).
+    Returns ``dyn``."""
     args = (splits, lv_sched, delete_rows, scratch_base)
-    if not _on_cuda(*_yata_inputs(statics, dyn, *args)):
-        return batch_step_levels_plain(statics, dyn, *args)
+    extra = () if counter is None else (counter,)
+    if not _on_cuda(*_yata_inputs(statics, dyn, *args), *extra):
+        return batch_step_levels_plain(statics, dyn, *args, counter=counter)
     from . import _cuda
 
     _check_yata(statics, dyn, splits, lv_sched, delete_rows, scratch_base)
@@ -840,13 +875,17 @@ def batch_step_levels(statics, dyn, splits, lv_sched, delete_rows,
     b = right.shape[0]
     if scratch_base.dim() != 1:
         raise ValueError("scratch_base must be [B]")
+    if counter is not None:
+        _check(counter, "counter", (torch.int32,), 1)
+        if counter.shape[0] != 2:
+            raise ValueError("counter must be [2]")
     if b:
         visit = torch.full_like(right, NULL)
         fast = torch.empty((b, max(1, lv_sched.shape[2])), dtype=torch.uint8,
                            device=right.device)
         _cuda.batch_step_levels([statics[k] for k in STATIC_KEYS], dyn,
                                 visit, fast, splits, lv_sched, delete_rows,
-                                scratch_base, EPOCH_MAX)
+                                scratch_base, EPOCH_MAX, counter=counter)
         launches["batch_step_levels"] += 1
     return dyn
 
@@ -1108,6 +1147,86 @@ def anchor_lookup(flat_key, q_key):
     if q_key.shape[0]:
         _cuda.anchor_lookup(flat_key, q_key, out)
         launches["anchor_lookup"] += 1
+    return out
+
+
+def sharded_anchor_lookup_plain(hays, q_blocks):
+    """Plain PyTorch version of :func:`sharded_anchor_lookup`."""
+    return [anchor_lookup_plain(h, q) for h, q in zip(hays, q_blocks)]
+
+
+@profiled("sharded_lookup")
+def sharded_anchor_lookup(hays, q_blocks):
+    """K13, the chunk anchor lookup sharded over the doc mesh: each
+    shard's query block searched by :func:`anchor_lookup` in the copy of
+    the haystack that lies on its device (``hays[s]``, one copy per
+    distinct device, shared by the shards there).  Returns the per-shard
+    ``[len(q_blocks[s])]`` int64 candidates."""
+    if len(hays) != len(q_blocks):
+        raise ValueError("one haystack per query block")
+    out = []
+    for hay, q in zip(hays, q_blocks):
+        out.append(anchor_lookup(hay, q))
+        if q.is_cuda and q.shape[0]:
+            launches["sharded_lookup"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The doc mesh's cross-shard fold (psum / pmax)
+# ---------------------------------------------------------------------------
+
+FOLD_OPS = ("sum", "max")
+
+
+def shard_fold_plain(parts, op: str = "sum"):
+    """Plain PyTorch version of :func:`shard_fold`."""
+    stacked = torch.stack([p.to(parts[0].device) for p in parts])
+    if op == "max":
+        return stacked.amax(0)
+    return stacked.sum(0).to(torch.int32)  # int64 sum, wrapped to int32
+
+
+@profiled("shard_fold")
+def shard_fold(parts, op: str = "sum"):
+    """The cross-shard reduction of the doc mesh, the port's ``psum``
+    (``op="sum"``, wrapping in int32) and ``pmax`` (``"max"``): ``P``
+    equal int32 partials folded elementwise into a fresh tensor on the
+    device of ``parts[0]``, the owner.  A partial on another CUDA device
+    is copied to the owner first, device to device; the partials on the
+    owner's device are read where they lie."""
+    if op not in FOLD_OPS:
+        raise ValueError(f"op must be one of {FOLD_OPS}, got {op!r}")
+    if not parts:
+        raise ValueError("nothing to fold")
+    kinds = {p.device.type for p in parts}
+    if kinds == {"cpu"}:
+        return shard_fold_plain(parts, op)
+    if kinds != {"cuda"}:
+        raise ValueError(
+            f"partials must all be on the CPU or on CUDA devices, got "
+            f"{sorted(str(p.device) for p in parts)}"
+        )
+    from . import _cuda
+
+    owner = parts[0].device
+    shape = parts[0].shape
+    for p in parts:
+        _check(p, "partial", (torch.int32,), len(shape))
+        if p.shape != shape:
+            raise ValueError("partials disagree in shape")
+    local = [p if p.device == owner else p.to(owner) for p in parts]
+    out = torch.empty(shape, dtype=torch.int32, device=owner)
+    n = out.numel()
+    code = FOLD_OPS.index(op)
+    k = _cuda.FOLD_MAX_PARTS
+    if n:
+        _cuda.shard_fold(local[:k], n, code, out)
+        launches["shard_fold"] += 1
+        # more than k partials: later rounds fold into the running result
+        for i in range(k, len(local), k - 1):
+            _cuda.shard_fold([out, *local[i : i + k - 1]], n, code, out)
+            launches["shard_fold"] += 1
     return out
 
 

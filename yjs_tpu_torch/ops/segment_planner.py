@@ -30,8 +30,8 @@ on ``"cpu"`` their plain PyTorch versions serve.  Their keys are true
 int64: the JAX package truncates them to int32 (ROADMAP R2), so its
 candidates can differ from these, which equal the ``np`` mode's.  The
 native planner (:mod:`.native_mirror`) reads the mode only as an on/off
-flag.  A mesh of more than one device (the sharded lookup, K13) is not
-ported and raises.
+flag.  On a doc mesh of more than one shard the chunk's anchor lookup
+splits its queries over the shards (the sharded lookup, K13).
 
 Every array this module returns is freshly allocated host memory.
 
@@ -48,6 +48,7 @@ import os
 
 import numpy as np
 
+from ..parallel.mesh import put_host, shard_rows
 from . import kernels
 from . import plan_cache as _pc
 
@@ -234,6 +235,19 @@ def plan_doc(q: SegmentQueries | None, mode: str | None = None,
     return plan
 
 
+def _sharded_lookup(devices, flat_key, q_key) -> np.ndarray:
+    """The chunk anchor lookup sharded over a doc mesh (K13): the padded
+    haystack is copied once to each distinct device of ``devices`` (the
+    search space every shard shares), the padded queries split into one
+    equal block a shard, and each shard binary-searches its block.
+    Returns the host int64 candidates of every query."""
+    hay = {dev: put_host(flat_key, dev) for dev in dict.fromkeys(devices)}
+    out = kernels.sharded_anchor_lookup(
+        [hay[d] for d in devices], shard_rows(q_key, devices)
+    )
+    return np.concatenate([c.cpu().numpy() for c in out])
+
+
 def plan_chunk(items, mode: str | None = None, mesh=None, device=None):
     """Plan a whole flush chunk of cold docs in one batched kernel pass.
 
@@ -243,17 +257,9 @@ def plan_chunk(items, mode: str | None = None, mesh=None, device=None):
     conflict scan; anchor lookups for every doc that still needs its
     snapshot compose ``(doc, slot, clock)`` into one key space so a
     single searchsorted resolves the entire chunk.  The kernels run on
-    ``device``.  A ``mesh`` of more than one device (the reference's
-    sharded lookup) raises ``NotImplementedError``.
+    ``device``; over a ``mesh`` of more than one shard the lookup runs
+    sharded (:func:`_sharded_lookup`) on the mesh's doc-axis devices.
     """
-    # a mesh's device count, as a JAX mesh gives it (unknown: many)
-    n_dev = getattr(getattr(mesh, "devices", None), "size", 2)
-    if mesh is not None and n_dev > 1:
-        raise NotImplementedError(
-            "plan_chunk over a doc mesh of more than one device (the "
-            "sharded anchor lookup, K13) is not ported yet (ROADMAP "
-            "queue 1, item 10)"
-        )
     mode = mode or plan_segment_mode()
     out = [None] * len(items)
     if mode == "off":
@@ -331,7 +337,20 @@ def plan_chunk(items, mode: str | None = None, mesh=None, device=None):
         [np.where(gs >= 0, gs * base_clock + ck, -1)
          for gs, ck, _ls in qk_parts]
     )
-    cand_all = kernels.lookup_keys(flat_gkey, q_gkey, "jax", device)
+    if mesh is not None and mesh.devices.size > 1:
+        shards = mesh.axis_devices(mesh.axis_names[0])
+        qb = kernels._bucket_pow2(q_gkey.shape[0])
+        qb = -(-qb // len(shards)) * len(shards)  # a block a shard
+        cand_all = _sharded_lookup(
+            shards,
+            kernels._pad_pow2(
+                flat_gkey, kernels._bucket_pow2(max(1, flat_gkey.shape[0])),
+                np.iinfo(np.int64).max,
+            ),
+            kernels._pad_pow2(q_gkey, qb, -1),
+        )[: q_gkey.shape[0]]
+    else:
+        cand_all = kernels.lookup_keys(flat_gkey, q_gkey, "jax", device)
     # ---- split hints back per doc ------------------------------------
     flat_slots_g = np.concatenate([gs for gs, _fc in f_parts])
     flat_clocks = np.concatenate([fc for _gs, fc in f_parts])

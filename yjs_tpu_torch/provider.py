@@ -234,7 +234,10 @@ class TpuProvider:
     ``device`` places the engine's tables: ``None`` (default) is the
     CUDA device, and the constructor raises without one; pass
     ``device="cpu"`` to run the kernels' plain PyTorch versions on the
-    CPU.  ``mesh=`` raises, as in :class:`BatchEngine`.
+    CPU.  ``mesh=`` (a :class:`yjs_tpu_torch.parallel.DocMesh`) shards
+    the engine's doc batch over its devices, as in :class:`BatchEngine`,
+    whose device is then the mesh's first; :meth:`recover` takes the
+    same ``mesh=``.
     """
 
     def __init__(
