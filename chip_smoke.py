@@ -117,7 +117,16 @@ script exits non-zero:
    the YATA steps' rows add the longest per-doc chain of dependent loads
    (``dep_chain``), which limits them (``limited_by``), and the measured
    time per load; the planner kernels' rows add the pageable host copies
-   around them (``h2d_ms``, ``d2h_ms``);
+   around them (``h2d_ms``, ``d2h_ms``); the fold's, K13's and K11's rows
+   add ``ms_obs_off`` (the same events loop with the kernel profiler off)
+   and ``host_us`` (one call's host time by ``time.perf_counter`` over
+   1000 calls, split into the profiler, the checks and allocation, the
+   device guard and stream lookup, and the ctypes call with its launch),
+   K13's ``library_one_ms`` (one ``torch.searchsorted`` over the whole
+   query, which on one card computes the same function) and K11's time
+   with its shared-memory sample staged and not staged, in turns, each
+   from 50 launches replayed back to back from a CUDA graph
+   (``graph_ms_staged``, ``graph_ms_unstaged``);
 10. the last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -147,6 +156,7 @@ N_HYDRATED = 16
 N_EXPORTED = 32
 N_SAMPLED_CLIENTS = 32
 TIMED_LAUNCHES = 50
+HOST_SPLIT_CALLS = 1000
 YATA_TIMED_LAUNCHES = 20
 
 
@@ -219,7 +229,8 @@ def build_phase() -> None:
         lib = plan.result()
     check(lib is not None and native.has_plancore(), "native plan core built")
     log(f"[build] wall {time.perf_counter() - t0:.2f}s; "
-        f"g++ plan core {native.build_seconds:.2f}s")
+        f"g++ plan core {native.build_seconds:.2f}s; launches read the "
+        f"stream with {_cuda.stream_lookup}")
     for name, rec in info.items():
         log(f"[build] nvcc {name}.cu {rec['seconds']:.2f}s")
         for line in _cuda.ptxas_summary(rec["ptxas"]):
@@ -1603,9 +1614,10 @@ def mesh_path(traces: list[bytes], edits: dict[int, list[bytes]],
             spy.check_metrics(f"planner flush {k}")
             assert_twins(eng, twin, f"planner flush {k} ({n} docs, "
                          f"{m['plan_threads']} co-planned, {lookups} "
-                         f"sharded lookups, {t:.3f}s)", "mesh")
-        check(lookups >= N_SHARDS or card.type != "cuda",
-              "flush 2's chunk did not run the sharded lookup on every shard")
+                         f"sharded lookup launches, {t:.3f}s)", "mesh")
+        # one launch serves every shard of the card
+        check(lookups >= 1 or card.type != "cuda",
+              "flush 2's chunk did not run the sharded lookup")
         for i in range(0, n, n // 8):
             check_export(Y, eng, [traces[i], *bursts[i]], i, "meshed planner")
         log(f"[mesh] planner engine: bursts {out['t_bursts']:.1f}s (set-up); "
@@ -1768,6 +1780,9 @@ def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
         "launches": m_launches["shard_fold"],
         "max_abs_err": max_abs_err(got, ref),
         "ms": cuda_ms(lambda: K.shard_fold(partials, "max")),
+        "ms_obs_off": obs_off(lambda: cuda_ms(
+            lambda: K.shard_fold(partials, "max"))),
+        "host_us": host_split(lambda: K.shard_fold(partials, "max")),
         "device_ms": device_ms(lambda: K.shard_fold(partials, "max")),
         "plain_ms": cuda_ms(lambda: K.shard_fold_plain(partials, "max")),
         "bound_ms": (len(partials) + 1) * partials[0].nbytes
@@ -1789,8 +1804,15 @@ def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
     def library():
         return [torch.searchsorted(flat, p, right=True) - 1 for p in qs]
 
+    def library_one():
+        # one card: the shards share one haystack, so one call over the
+        # whole query computes the same function
+        return torch.searchsorted(flat, q, right=True) - 1
+
     check(all(torch.equal(a, b) for a, b in zip(library(), ref)),
           "torch.searchsorted disagrees with K13's plain version")
+    check(torch.equal(library_one(), torch.cat(ref)),
+          "one torch.searchsorted disagrees with K13's plain version")
     rows.append({
         "name": "sharded_lookup", "route": "cuda",
         "source": "yjs_tpu_torch/csrc/anchor_lookup.cu",
@@ -1799,10 +1821,14 @@ def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
                  f"queries={q.numel()} int64",
         "launches": m_launches["sharded_lookup"], "max_abs_err": err,
         "ms": cuda_ms(lambda: K.sharded_anchor_lookup(hays, qs)),
+        "ms_obs_off": obs_off(lambda: cuda_ms(
+            lambda: K.sharded_anchor_lookup(hays, qs))),
+        "host_us": host_split(lambda: K.sharded_anchor_lookup(hays, qs)),
         "device_ms": device_ms(lambda: K.sharded_anchor_lookup(hays, qs)),
         "plain_ms": cuda_ms(lambda: K.sharded_anchor_lookup_plain(hays, qs)),
         "bound_ms": lookup_bytes(flat, q) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": cuda_ms(library),
+        "library_one_ms": cuda_ms(library_one),
     })
     for row in rows:
         row["path"] = "mesh"
@@ -1822,6 +1848,91 @@ def cuda_ms(fn, n: int = TIMED_LAUNCHES) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def obs_off(fn):
+    """``fn()`` with ``YTPU_OBS_DISABLED=1`` (the kernel profiler reads it
+    on every call), the variable restored afterwards."""
+    saved = os.environ.get("YTPU_OBS_DISABLED")
+    os.environ["YTPU_OBS_DISABLED"] = "1"
+    try:
+        return fn()
+    finally:
+        restore_env("YTPU_OBS_DISABLED", saved)
+
+
+def host_us(fn, n: int = HOST_SPLIT_CALLS) -> float:
+    """Host µs per call of ``fn()`` by ``time.perf_counter`` over ``n``
+    calls back to back, after a warm-up call (the calls only enqueue)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def host_split(wrapper) -> dict:
+    """One call's host time split into its parts, µs each:
+
+    - ``profiler``: the profiled call minus its body with the profiler
+      off (``YTPU_OBS_DISABLED=1``; every profiled call inside the body
+      is counted here);
+    - ``checks_alloc``: the body with ``_cuda._call`` replaced by a no-op
+      (checks, allocation, the ctypes argument marshalling);
+    - ``guard_stream``: what ``_call`` adds around the entry point, with
+      every entry point replaced by a no-op (the device guard and the
+      stream lookup);
+    - ``ctypes``: the entry points themselves (the ctypes call and the
+      kernel launch).
+
+    ``wrapper`` is a zero-argument call of a profiled kernel wrapper.
+    With the profiler off the wrapper still reads the variable, which
+    ``checks_alloc`` then counts."""
+    from yjs_tpu_torch.ops import _cuda
+
+    total = host_us(wrapper)
+    body = obs_off(lambda: host_us(wrapper))
+    fns, call = _cuda._fns, _cuda._call
+    _cuda._fns = {k: (lambda *a: 0) for k in fns}
+    try:
+        no_entry = obs_off(lambda: host_us(wrapper))
+    finally:
+        _cuda._fns = fns
+    _cuda._call = lambda *a: None
+    try:
+        no_call = obs_off(lambda: host_us(wrapper))
+    finally:
+        _cuda._call = call
+    return {"total": total, "profiler": total - body,
+            "checks_alloc": no_call, "guard_stream": no_entry - no_call,
+            "ctypes": body - no_entry}
+
+
+def graph_ms(fn, n: int = TIMED_LAUNCHES, replays: int = 5) -> float:
+    """Mean ms of one call's kernels replayed back to back: ``n`` calls of
+    ``fn()`` captured in a CUDA graph, CUDA events around ``replays``
+    replays.  No host work lies between the launches, so the card stays
+    loaded and its clocks up: a small kernel's own time, for comparing
+    two versions of it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (n * replays)
 
 
 def device_ms(fn, n: int = TIMED_LAUNCHES, restore=None):
@@ -2068,12 +2179,33 @@ def planner_rows(plseen: dict, pl_launches: dict) -> list[dict]:
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None, "h2d_ms": h2d, "d2h_ms": d2h,
         })
+    from yjs_tpu_torch.ops import _cuda
+
     flat, q = plseen["anchor_lookup"]
     got = K.anchor_lookup(flat, q)
     ref = K.anchor_lookup_plain(flat, q)
     err = max_abs_err(got, ref)
     ms = cuda_ms(lambda: K.anchor_lookup(flat, q))
+    ms_obs_off = obs_off(lambda: cuda_ms(lambda: K.anchor_lookup(flat, q)))
+    split = host_split(lambda: K.anchor_lookup(flat, q))
     dev_ms = device_ms(lambda: K.anchor_lookup(flat, q))
+    # the same launch with the shared-memory sample staged and not staged
+    unstaged = torch.empty_like(q)
+    desc = [flat.data_ptr(), flat.numel(), q.data_ptr(), unstaged.data_ptr(),
+            q.numel()]
+
+    def launch(stage_min):
+        return lambda: _cuda.anchor_lookup(desc, q.device, stage_min)
+
+    launch(1 << 62)()
+    check(torch.equal(unstaged, ref), "K11 unstaged differs from its plain version")
+    # replayed from a graph, in turns (staged, unstaged, unstaged,
+    # staged): launched one by one from the host the card idles between
+    # kernels of a few µs, and its clocks follow its load
+    order = (_cuda.LOOKUP_STAGE_MIN, 1 << 62, 1 << 62, _cuda.LOOKUP_STAGE_MIN)
+    turns = [graph_ms(launch(m)) for m in order]
+    staging = {"graph_ms_staged": [turns[0], turns[3]],
+               "graph_ms_unstaged": [turns[1], turns[2]]}
     plain_ms = cuda_ms(lambda: K.anchor_lookup_plain(flat, q), 5)
 
     def library():
@@ -2088,8 +2220,8 @@ def planner_rows(plseen: dict, pl_launches: dict) -> list[dict]:
         "replaces": "yjs_tpu/ops/kernels.py:531",
         "shape": f"haystack={flat.numel()} queries={q.numel()} int64",
         "path": "planner", "launches": pl_launches["anchor_lookup"],
-        "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-        "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "ms_obs_off": ms_obs_off,
+        "host_us": split, "device_ms": dev_ms, **staging, "plain_ms": plain_ms,
         "bound_ms": lookup_bytes(flat, q) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": lib_ms, "h2d_ms": h2d, "d2h_ms": d2h,
     })

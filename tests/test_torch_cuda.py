@@ -1175,7 +1175,11 @@ def test_sharded_state_vectors_kernel_matches_plain(cuda_device, rows, wide):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_shards", [1, 4, 3])
-def test_sharded_lookup_kernel_matches_plain(cuda_device, n_shards):
+def test_sharded_lookup_kernel_matches_plain(cuda_device, n_shards,
+                                             monkeypatch):
+    """K13 through the planner on shards of one card: one launch, one
+    host-to-device copy each of the haystack and the queries and one copy
+    of the candidates back."""
     from yjs_tpu_torch.ops import segment_planner as sp
 
     flat, q = lookup_case(71, 3000, 700, wide=True, pad=False)
@@ -1184,15 +1188,102 @@ def test_sharded_lookup_kernel_matches_plain(cuda_device, n_shards):
     qb = -(-qb // n_shards) * n_shards
     qk = kernels._pad_pow2(q, qb, -1)
     devs = [cuda_device] * n_shards
+    placed, read = [], []
+    put, cpu = sp.put_host, torch.Tensor.cpu
+    monkeypatch.setattr(sp, "put_host",
+                        lambda x, dev: placed.append(len(x)) or put(x, dev))
+    monkeypatch.setattr(torch.Tensor, "cpu",
+                        lambda t, *a, **k: read.append(t.numel()) or cpu(
+                            t, *a, **k))
     before = kernels.launches["sharded_lookup"]
     got = sp._sharded_lookup(devs, fk, qk)
-    assert kernels.launches["sharded_lookup"] == before + n_shards
+    monkeypatch.undo()
+    # one launch for each distinct device: the shards share the card
+    assert kernels.launches["sharded_lookup"] == before + 1
+    assert placed == [len(fk), len(qk)] and read == [len(qk)]
     ref = np.concatenate([c.numpy() for c in kernels.sharded_anchor_lookup_plain(
         [torch.from_numpy(fk)] * n_shards,
         list(torch.from_numpy(qk).chunk(n_shards)))])
     np.testing.assert_array_equal(ref, got)
     np.testing.assert_array_equal(
         got[: len(q)], np.searchsorted(flat, q, side="right") - 1)
+
+
+def staged_case(seed: int, n_hay: int, n_q: int = 5000):
+    """A sorted int64 haystack for the lookup's shared-memory sample:
+    runs of equal keys, one straddling every sample key (every
+    ``ceil(n_hay / LOOKUP_SAMPLE)``-th key, when that is 3 or more), the
+    last tenth int64.max padding; queries at each sample key and its
+    neighbours, -1, int64.max and random keys."""
+    from yjs_tpu_torch.ops._cuda import LOOKUP_SAMPLE
+
+    g = np.random.default_rng(seed)
+    keys = np.sort(g.integers(2**33, 2**33 + 3 * n_hay, n_hay)).astype(np.int64)
+    stride = -(-n_hay // LOOKUP_SAMPLE)
+    if stride >= 3:  # keys b-1, b, b+1 equal at each sample key b
+        for b in range(stride, n_hay - 1, stride):
+            keys[b - 1 : b + 2] = keys[b - 1]
+    keys[n_hay - n_hay // 10 :] = INT64_MAX
+    sample = keys[::stride]
+    q = np.concatenate([sample, sample - 1, sample + 1, [-1, INT64_MAX],
+                        g.integers(-1, 2**33 + 4 * n_hay, n_q)])
+    return keys, q.astype(np.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_hay", [1, 127, 129, 2047, (1 << 13) - 1, 1 << 13,
+                                   (1 << 13) + 1, 3 * 128 * 53 + 7, 1 << 21])
+def test_anchor_lookup_sample_stage_edges(cuda_device, n_hay):
+    """The lookup below, at and above the staging threshold (2**13), with
+    a haystack that is not a multiple of the sample, equal keys across
+    sample boundaries, int64.max padding and -1 queries: K11 and one
+    K13 shard equal ``np.searchsorted(side="right") - 1``, and so does
+    the kernel with the staging forced on (``stage_min=1``, a sample of
+    every key when n_hay is below the sample) and forced off."""
+    from yjs_tpu_torch.ops import _cuda
+
+    keys, q = staged_case(n_hay, n_hay)
+    want = np.searchsorted(keys, q, side="right") - 1
+    hay_t, q_t = _torch((keys, q), cuda_device)
+    np.testing.assert_array_equal(kernels.anchor_lookup(hay_t, q_t).cpu(), want)
+    (one,) = kernels.sharded_anchor_lookup([hay_t], [q_t])
+    np.testing.assert_array_equal(one.cpu(), want)
+    for stage_min in (1, 1 << 62):
+        out = torch.empty_like(q_t)
+        _cuda.anchor_lookup([hay_t.data_ptr(), n_hay, q_t.data_ptr(),
+                             out.data_ptr(), len(q)], cuda_device, stage_min)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(out.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [
+    [(70_000, 500_000)],
+    [(9000, 3000), (0, 17), (300, 0)],
+    [(1 << 14, 1000), (5, 1), (0, 0), (20_000, 4096)],
+    [((s * 977) % 20_000, 1 + (s * 131) % 900) for s in range(65)],
+])
+def test_sharded_lookup_launcher_matches_plain(cuda_device, sizes):
+    """K13 over shards of one card with haystacks and query blocks of
+    uneven sizes, empty ones among them, 65 shards in two rounds: every
+    shard equals ``anchor_lookup_plain``, the results are views of one
+    buffer, and the launches are one per 64 shards with queries."""
+    hays, qs = [], []
+    for k, (n_hay, n_q) in enumerate(sizes):
+        flat, q = lookup_case(300 + k, n_hay, n_q, wide=True, pad=False)
+        hays.append(torch.from_numpy(flat).to(cuda_device))
+        qs.append(torch.from_numpy(q).to(cuda_device))
+    before = kernels.launches["sharded_lookup"]
+    got = kernels.sharded_anchor_lookup(hays, qs)
+    torch.cuda.synchronize()
+    live = sum(1 for _h, n_q in sizes if n_q)
+    assert kernels.launches["sharded_lookup"] == before + -(-live // 64)
+    ref = kernels.sharded_anchor_lookup_plain(hays, qs)
+    bases = {g.untyped_storage().data_ptr() for g in got if g.numel()}
+    assert len(bases) <= 1
+    for g, r, q in zip(got, ref, qs):
+        assert g.shape == q.shape and g.dtype == torch.int64
+        assert torch.equal(g, r)
 
 
 @pytest.mark.cuda

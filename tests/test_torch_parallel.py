@@ -277,6 +277,100 @@ def test_sharded_lookup_true_int64_keys(mesh8):
     )
 
 
+CUDA0, CUDA1 = torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("devices,want", [
+    ([CUDA0] * 4, {CUDA0: [0, 1, 2, 3]}),
+    ([CUDA0, CUDA1, CUDA0, CUDA1], {CUDA0: [0, 2], CUDA1: [1, 3]}),
+    ([CUDA1, CUDA1, CUDA0], {CUDA1: [0, 1], CUDA0: [2]}),
+    ([CPU] * 3, {CPU: [0, 1, 2]}),
+    ([], {}),
+])
+def test_device_groups(devices, want):
+    """Shards grouped by device, devices in first-seen order, shards in
+    order within each (one launch and one buffer a group)."""
+    got = tk._device_groups(devices)
+    assert got == want and list(got) == list(want)
+
+
+def test_sharded_lookup_records_one_profiled_call(mesh8):
+    """One K13 call is one profiled ``sharded_lookup`` span: its shards go
+    to the lookup directly, not through the profiled K11 wrapper."""
+    from yjs_tpu_torch.obs.prof import kernel_profiler
+
+    if not kernel_profiler().enabled:
+        pytest.skip("the kernel profiler is off in this process")
+    hay, q = lookup_case(10)
+    hays = [torch.from_numpy(hay)] * 4
+    qs = list(torch.from_numpy(tk._pad_pow2(q, 256, -1)).chunk(4))
+
+    def calls():
+        snap = kernel_profiler().snapshot()["kernels"]
+        return {k: snap.get(k, {}).get("compiles", 0) + snap.get(k, {}).get(
+            "hits", 0) for k in ("sharded_lookup", "anchor_lookup")}
+
+    before = calls()
+    got = tk.sharded_anchor_lookup(hays, qs)
+    after = calls()
+    assert after["sharded_lookup"] == before["sharded_lookup"] + 1
+    assert after["anchor_lookup"] == before["anchor_lookup"]
+    for g, w in zip(got, tk.sharded_anchor_lookup_plain(hays, qs)):
+        assert torch.equal(g, w)
+
+
+def test_sharded_lookup_one_copy_each_way_a_device(mesh8, monkeypatch):
+    """The eight shards share the CPU: the planner's sharded lookup places
+    the haystack and the queries with one copy each (``put_host``), runs
+    one profiled lookup, and gives the same candidates as ``np`` mode."""
+    hay, q = lookup_case(11)
+    q_pad = tk._pad_pow2(q, 256, -1)
+    placed = []
+    real = tsp.put_host
+    monkeypatch.setattr(tsp, "put_host",
+                        lambda x, dev: placed.append(len(x)) or real(x, dev))
+    got = tsp._sharded_lookup(mesh8.axis_devices(), hay, q_pad)
+    assert placed == [len(hay), len(q_pad)]
+    np.testing.assert_array_equal(
+        got, np.searchsorted(hay, q_pad, side="right") - 1)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_zero_counters_one_block_a_device(jmesh8, mesh8, seed):
+    """The sharded steps' counters are the rows of one zeroed ``[S, 2]``
+    block a device (here the eight CPU shards share one), and
+    ``fold_metrics`` over them equals the JAX package's psum."""
+    widths, lanes, tables = apply_case(seed)
+    _out, metrics = jmesh.sharded_apply_plan(jmesh8, "docs", *widths)(
+        tuple(jnp.asarray(t) for t in tables), jnp.asarray(lanes))
+    want = {k: int(v) for k, v in metrics.items()}
+    dyn, counters = tmesh.sharded_apply_plan(mesh8, "docs", *widths)(
+        shard_tables(mesh8, *tables), lanes)
+    block = counters[0]._base
+    assert block is not None and block.shape == (8, 2)
+    for s, c in enumerate(counters):
+        assert c._base is block and c.shape == (2,)
+        assert c.data_ptr() == block.data_ptr() + 8 * s
+    assert tmesh.fold_metrics(counters) == want
+    assert tmesh.fold_metrics(counters, plain=True) == want
+    assert want["integrated"] > 0
+
+
+def test_zero_counters_interleaved_devices():
+    """Shards on two devices, interleaved: a block a device, each shard's
+    row from its own device's block, all zero."""
+    meta = torch.device("meta")
+    devs = [CPU, meta, CPU, meta, meta]
+    dyn = [(torch.empty(1, device=d),) for d in devs]
+    counters = tmesh._zero_counters(dyn)
+    assert [c.device.type for c in counters] == [d.type for d in devs]
+    cpu_block = counters[0]._base
+    assert cpu_block.shape == (2, 2) and counters[2]._base is cpu_block
+    assert counters[1]._base is counters[3]._base is counters[4]._base
+    assert counters[1]._base.shape == (3, 2)
+    assert int(cpu_block.abs().sum()) == 0
+
+
 # -- the cases of tests/test_parallel.py, on the port ---------------------------
 
 

@@ -13,10 +13,11 @@
 // one launch's latency; a state-vector fold is a few hundred KB.
 //
 // Design: the P partial pointers travel by value in the kernel's
-// arguments (up to kMaxParts of them; the wrapper folds more in rounds,
-// the running result passed as the first part of the next round, which
-// is safe because each thread reads all its inputs before it writes its
-// own element).  One thread per element in a grid-stride loop: coalesced
+// arguments (up to kMaxParts of them; the host entry folds more in
+// rounds, the running result passed as the first part of the next round,
+// which is safe because each thread reads all its inputs before it
+// writes its own element).  One call of the host entry is the whole
+// fold: the wrapper's Python work is one pointer array and one call.  One thread per element in a grid-stride loop: coalesced
 // loads of the P partials at the same index.  Every partial lies on the
 // owner's device: the wrapper copies a partial that lives on another
 // device there first, device to device, and copies nothing on a shared
@@ -55,30 +56,39 @@ __global__ void shard_fold_kernel(Parts parts, int n_parts, int64_t n,
 
 }  // namespace
 
-// parts: a host array of n_parts device pointers (1 <= n_parts <=
-// kMaxParts), each to n int32; op 0 is SUM, 1 is MAX.  out may be one of
-// the parts.
+// parts: a host array of n_parts >= 1 device pointers, each to n int32;
+// op 0 is SUM, 1 is MAX.  out may be one of the parts.  The first launch
+// folds the first kMaxParts parts; each further launch folds the running
+// result with the next kMaxParts - 1.
 extern "C" int ytpu_shard_fold(const void* const* parts, int n_parts,
                                long long n, int op, void* out,
                                void* stream) {
-  if (n_parts < 1 || n_parts > kMaxParts || (op != 0 && op != 1)) {
+  if (n_parts < 1 || (op != 0 && op != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n <= 0) return (int)cudaSuccess;
-  Parts p;
-  for (int k = 0; k < kMaxParts; ++k) {
-    p.p[k] = k < n_parts ? static_cast<const int32_t*>(parts[k]) : nullptr;
-  }
   int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   auto st = static_cast<cudaStream_t>(stream);
   auto* o = static_cast<int32_t*>(out);
-  if (op == 1) {
-    shard_fold_kernel<true><<<(unsigned)blocks, kThreads, 0, st>>>(
-        p, n_parts, (int64_t)n, o);
-  } else {
-    shard_fold_kernel<false><<<(unsigned)blocks, kThreads, 0, st>>>(
-        p, n_parts, (int64_t)n, o);
+  int next = 0;  // the first part not folded yet
+  while (next < n_parts) {
+    Parts p;
+    int k = 0;
+    if (next > 0) p.p[k++] = o;
+    while (k < kMaxParts && next < n_parts) {
+      p.p[k++] = static_cast<const int32_t*>(parts[next++]);
+    }
+    for (int j = k; j < kMaxParts; ++j) p.p[j] = nullptr;
+    if (op == 1) {
+      shard_fold_kernel<true><<<(unsigned)blocks, kThreads, 0, st>>>(
+          p, k, (int64_t)n, o);
+    } else {
+      shard_fold_kernel<false><<<(unsigned)blocks, kThreads, 0, st>>>(
+          p, k, (int64_t)n, o);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }

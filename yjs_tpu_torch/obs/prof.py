@@ -46,6 +46,8 @@ import os
 import time
 from collections import deque
 
+from torch import Tensor
+
 from . import global_registry, obs_enabled
 from .trace import Tracer
 
@@ -85,6 +87,35 @@ def call_signature(args, kwargs) -> tuple:
     """Abstract signature of one call: (shape, dtype@device) per tensor
     leaf, value per hashable static."""
     return tuple(_leaf_sig(leaf) for leaf in _leaves((args, kwargs), []))
+
+
+_STATICS = (int, float, bool, str, bytes, type(None))
+
+
+def _raw_leaves(obj, out: list) -> list:
+    """:func:`_leaves` that keeps each leaf's identity unformatted: the
+    raw ``(shape, dtype, device)`` of an array, the value of a static,
+    the type of anything else.  It tells apart exactly the calls that
+    :func:`call_signature` tells apart, without formatting a string."""
+    if isinstance(obj, Tensor):  # the common leaf first
+        out.append((obj.shape, obj.dtype, obj.device))
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            _raw_leaves(x, out)
+    elif isinstance(obj, dict):
+        for k in sorted(obj):
+            _raw_leaves(obj[k], out)
+    else:
+        shape = getattr(obj, "shape", None)
+        if shape is not None:
+            out.append((shape if isinstance(shape, tuple) else tuple(shape),
+                        getattr(obj, "dtype", None),
+                        getattr(obj, "device", None)))
+        elif isinstance(obj, _STATICS):
+            out.append(obj)
+        else:
+            out.append(type(obj))
+    return out
 
 
 def _cuda_devices(out) -> set:
@@ -189,17 +220,20 @@ class KernelProfiler:
         )
         self._signatures: dict[str, set] = {}
         self.retrace_events: deque = deque(maxlen=RETRACE_EVENTS_MAX)
-        # (kernel, sig) -> (hit child, device-seconds child): the steady
-        # state is two dict hits + arithmetic per call
+        # (kernel, sig) -> (hit child, device-seconds child)
         self._children: dict = {}
+        # (kernel, raw leaves) -> the same pair: the steady state is one
+        # walk over the leaves, a dict hit and arithmetic per call, and
+        # the labels are formatted only on a miss
+        self._hit_children: dict = {}
         self._host_children: dict = {}
 
     # -- recording -----------------------------------------------------
 
     def call(self, kernel: str, fn, args, kwargs):
         device_mode = os.environ.get("YTPU_PROF_DEVICE") == "1"
-        sig = call_signature(args, kwargs)
-        cached = self._children.get((kernel, sig))
+        key = (kernel, tuple(_raw_leaves((args, kwargs), [])))
+        cached = self._hit_children.get(key)
         if cached is not None and not device_mode:
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
@@ -207,11 +241,12 @@ class KernelProfiler:
             cached[0].inc()
             cached[1].observe(dt)
             return out
-        return self._call_slow(kernel, fn, args, kwargs, sig, device_mode)
+        return self._call_slow(kernel, fn, args, kwargs, key, device_mode)
 
-    def _call_slow(self, kernel, fn, args, kwargs, sig, device_mode):
+    def _call_slow(self, kernel, fn, args, kwargs, key, device_mode):
         import torch
 
+        sig = call_signature(args, kwargs)
         ann = (
             torch.profiler.record_function(f"ytpu.prof.{kernel}")
             if device_mode
@@ -232,6 +267,7 @@ class KernelProfiler:
         bucket = shape_bucket(sig)
         if not compiling:
             children = self._children[(kernel, sig)]
+            self._hit_children[key] = children
             children[0].inc()
             children[1].observe(dt)
             return out
@@ -251,10 +287,11 @@ class KernelProfiler:
             }
             self.retrace_events.append(event)
             self.tracer.instant("ytpu.prof.retrace", **event)
-        self._children[(kernel, sig)] = (
+        children = (
             self._hits.labels(kernel=kernel),
             self._device_seconds.labels(kernel=kernel, shape=bucket),
         )
+        self._children[(kernel, sig)] = self._hit_children[key] = children
         return out
 
     def record_host_op(self, op: str, dt_s: float) -> None:

@@ -5,10 +5,13 @@ and is compiled by its own ``nvcc`` process for ``sm_90a`` into
 ``yjs_tpu_torch/_build/`` at first use (see :mod:`..buildlib`); all
 sources compile in parallel.  The libraries are loaded with ``ctypes``:
 pointers and the stream pass as ``c_void_p``, sizes as ``c_int`` (the
-planner kernels' int64 lane counts as ``c_int64``).
+planner kernels' int64 lane counts as ``c_int64``), and a launch's
+per-shard pointers as one ``array.array`` the entry copies from.
 Kernels launch on PyTorch's current stream, neither allocate nor
 synchronise, and each C entry returns ``cudaGetLastError()``, which the
-binding here turns into a :class:`KernelError`.  A source that does not
+binding here turns into a :class:`KernelError`.  A launch enters no
+device context when the tensors' device is already current and reads the
+stream's raw handle with one C call.  A source that does not
 build or load raises the same error: callers that contain faults of the
 data (the engine's per-doc isolation) let it through, so a dead kernel
 stops the flush instead of sending docs to the CPU.
@@ -19,6 +22,7 @@ Nothing here runs at import time: importing the module needs neither
 
 from __future__ import annotations
 
+import array
 import ctypes
 import os
 import re
@@ -62,11 +66,17 @@ _ENTRIES = {
     ),
     "ytpu_apply_plan_shared": ("apply_lanes", [_vp] * 4 + [_int] * 6 + [_vp]),
     "ytpu_conflict_scan": ("conflict_scan", [_vp] * 12 + [_i64, _vp]),
-    "ytpu_anchor_lookup": ("anchor_lookup", [_vp, _i64, _vp, _vp, _i64, _vp]),
+    "ytpu_anchor_lookup_sharded": ("anchor_lookup", [_vp, _int, _i64, _vp]),
     "ytpu_shard_fold": ("shard_fold", [_vp, _int, _i64, _int, _vp, _vp]),
 }
 # the most partials one shard_fold launch takes (kMaxParts in the source)
 FOLD_MAX_PARTS = 64
+# the most shards one anchor-lookup launch takes (kMaxShards in the source)
+LOOKUP_MAX_SHARDS = 64
+# the least haystack length the anchor lookup stages in shared memory,
+# and the keys of that sample (kSample in the source)
+LOOKUP_STAGE_MIN = 1 << 13
+LOOKUP_SAMPLE = 128
 
 class KernelError(RuntimeError):
     """A CUDA kernel could not be built, loaded or launched, or a kernel
@@ -127,6 +137,7 @@ def build_all() -> dict:
         fn.argtypes = argtypes
         fn.restype = _int
         fns[entry] = fn
+    _bind_streams()
     _fns = fns
     return build_info
 
@@ -152,22 +163,50 @@ def ptxas_summary(report: str) -> list[str]:
     return out
 
 
+# bound by build_all: the current device's index and the raw handle of
+# a device's current stream, one C call each where this PyTorch has them
+# (``stream_lookup`` names the one bound)
+_current_device = None
+_raw_stream = None
+stream_lookup = None
+
+
+def _stream_object_handle(idx: int) -> int:
+    return torch.cuda.current_stream(idx).cuda_stream
+
+
+def _bind_streams() -> None:
+    global _current_device, _raw_stream, stream_lookup
+    _current_device = getattr(torch._C, "_cuda_getDevice",
+                              torch.cuda.current_device)
+    _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream",
+                          _stream_object_handle)
+    stream_lookup = getattr(_raw_stream, "__name__", str(_raw_stream))
+
+
 def _call(entry: str, device: torch.device, *args) -> None:
+    """Launch ``entry`` on the current stream of ``device``, switching the
+    current device only when it is another one (a mesh over several
+    cards)."""
     if _fns is None:
         build_all()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _fns[entry](*args, _vp(stream))
+    idx = device.index
+    cur = _current_device()
+    if idx is None or idx == cur:
+        err = _fns[entry](*args, _raw_stream(cur))
+    else:
+        with torch.cuda.device(idx):
+            err = _fns[entry](*args, _raw_stream(idx))
     if err:
         raise KernelError(f"{entry}: CUDA error {err} at launch")
 
 
-def _p(t: torch.Tensor):
-    return _vp(t.data_ptr())
+def _p(t: torch.Tensor) -> int:
+    return t.data_ptr()
 
 
 def _opt(t):
-    return _vp(None) if t is None else _p(t)
+    return None if t is None else t.data_ptr()
 
 
 def apply_lanes(lanes, cum, right, deleted, starts, b, n1, s1,
@@ -251,18 +290,30 @@ def conflict_scan(doc_id, cols, left, right, run_id, tile_sum) -> None:
     """``cols``: client, clock, length, o_cl, o_ck, r_cl, r_ck; ``doc_id``
     None for the per-doc variant."""
     n = left.shape[0]
-    doc = _vp(None) if doc_id is None else _p(doc_id)
+    doc = _opt(doc_id)
     _call("ytpu_conflict_scan", left.device, doc, *(_p(c) for c in cols),
           _p(left), _p(right), _p(run_id), _p(tile_sum), n)
 
 
-def anchor_lookup(flat_key, q_key, out) -> None:
-    _call("ytpu_anchor_lookup", q_key.device, _p(flat_key),
-          flat_key.shape[0], _p(q_key), _p(out), q_key.shape[0])
+def anchor_lookup(desc: list, device: torch.device,
+                  stage_min: int = LOOKUP_STAGE_MIN) -> int:
+    """Every shard of ``desc`` (flat rows of ``hay_ptr, n_hay, q_ptr,
+    out_ptr, n_q``, all on ``device``, ``n_q >= 1``) searched in one
+    launch per :data:`LOOKUP_MAX_SHARDS` shards; returns the launches.
+    ``stage_min``: the least haystack staged in shared memory."""
+    n = len(desc) // 5
+    rows = array.array("q", desc)  # read by the entry before it returns
+    _call("ytpu_anchor_lookup_sharded", device, rows.buffer_info()[0], n,
+          stage_min)
+    return -(-n // LOOKUP_MAX_SHARDS)
 
 
-def shard_fold(parts, n, op, out) -> None:
-    """``parts``: at most :data:`FOLD_MAX_PARTS` int32 tensors of ``n``
-    elements on ``out``'s device; ``op`` 0 is SUM, 1 is MAX."""
-    ptrs = (_vp * len(parts))(*(t.data_ptr() for t in parts))
-    _call("ytpu_shard_fold", out.device, ptrs, len(parts), n, op, _p(out))
+def shard_fold(ptrs: list, n: int, op: int, out) -> int:
+    """``ptrs``: the ``data_ptr`` of each int32 partial of ``n`` elements on
+    ``out``'s device; ``op`` 0 is SUM, 1 is MAX.  Returns the launches
+    (one per :data:`FOLD_MAX_PARTS` partials, then one per
+    ``FOLD_MAX_PARTS - 1``)."""
+    parts = array.array("Q", ptrs)  # read by the entry before it returns
+    _call("ytpu_shard_fold", out.device, parts.buffer_info()[0], len(ptrs),
+          n, op, out.data_ptr())
+    return 1 + max(0, -(-(len(ptrs) - FOLD_MAX_PARTS) // (FOLD_MAX_PARTS - 1)))

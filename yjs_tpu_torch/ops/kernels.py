@@ -68,8 +68,9 @@ shard.  Two wrappers here serve it:
   MAX (the reference's ``psum`` of the sharded steps' progress counters,
   which :func:`apply_lanes` and :func:`batch_step_levels` count into a
   shard's ``counter``, and ``pmax`` over a ``rows`` axis);
-- :func:`sharded_anchor_lookup` runs :func:`anchor_lookup` on each
-  shard's query block (the chunk planner's sharded lookup).
+- :func:`sharded_anchor_lookup` runs the anchor lookup on each shard's
+  query block, one launch for all the shards of a device (the chunk
+  planner's sharded lookup).
 
 A kernel that cannot be built, loaded or launched, or a CUDA device
 asked for on a host without one, raises :class:`KernelError`.
@@ -83,6 +84,7 @@ import numpy as np
 import torch
 
 from ..obs.prof import profiled
+from . import _cuda
 from ._cuda import KernelError
 from .columns import GATHER_SUCC
 
@@ -108,11 +110,12 @@ def reset_launches() -> None:
 def _on_cuda(*tensors) -> bool:
     """True when every tensor lies on one CUDA device, False when all are
     on the CPU; raises on a mix or on another device type."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return True
+    dev = tensors[0].device
+    if all(t.device == dev for t in tensors):
+        if dev.type == "cuda":
+            return True
+        if dev.type == "cpu":
+            return False
     raise ValueError(
         f"kernel inputs must all be on the CPU or on one CUDA device, got "
         f"{sorted(str(t.device) for t in tensors)}"
@@ -219,8 +222,6 @@ def apply_lanes(dyn, lanes, k_dn, k_sp, k_h, k_d, counter=None):
     ins = (right_link, deleted, starts, lanes)
     if not _on_cuda(*ins, *(() if counter is None else (counter,))):
         return apply_lanes_plain(dyn, lanes, k_dn, k_sp, k_h, k_d, counter)
-    from . import _cuda
-
     _check(right_link, "right_link", (torch.int32,), 2)
     _check(deleted, "deleted", (torch.bool,), 2)
     _check(starts, "starts", (torch.int32,), 2)
@@ -278,8 +279,6 @@ def scatter_rows(right, deleted, starts, idx, new_right, new_deleted,
     args = (right, deleted, starts, idx, new_right, new_deleted, new_starts)
     if not _on_cuda(*args):
         return scatter_rows_plain(*args)
-    from . import _cuda
-
     _check(right, "right", (torch.int32,), 2)
     _check(deleted, "deleted", (torch.bool,), 2)
     _check(starts, "starts", (torch.int32,), 2)
@@ -341,8 +340,6 @@ def list_ranks(right_link, valid):
     rows."""
     if not _on_cuda(right_link, valid):
         return list_ranks_plain(right_link, valid)
-    from . import _cuda
-
     _check(right_link, "right_link", (torch.int32,), 2)
     _check(valid, "valid", (torch.bool,), 2)
     if valid.shape != right_link.shape:
@@ -393,8 +390,6 @@ def state_vector_kernel(row_slot, row_end, n_slots: int):
     ``[B, n_slots]`` i32."""
     if not _on_cuda(row_slot, row_end):
         return state_vector_kernel_plain(row_slot, row_end, n_slots)
-    from . import _cuda
-
     _check(row_slot, "row_slot", (torch.int32,), 2)
     _check(row_end, "row_end", (torch.int32,), 2)
     if row_end.shape != row_slot.shape:
@@ -436,8 +431,6 @@ def diff_mask_kernel(row_slot, row_clock, row_end, sv):
     partial-first-struct rule, encoding.js:71-84)."""
     if not _on_cuda(row_slot, row_clock, row_end, sv):
         return diff_mask_kernel_plain(row_slot, row_clock, row_end, sv)
-    from . import _cuda
-
     for t, name in ((row_slot, "row_slot"), (row_clock, "row_clock"),
                     (row_end, "row_end"), (sv, "sv")):
         _check(t, name, (torch.int32,), 2)
@@ -688,8 +681,6 @@ def scatter_statics(statics, packed):
     cols = [statics[k] for k in STATIC_KEYS]
     if not _on_cuda(*cols, packed):
         return scatter_statics_plain(statics, packed)
-    from . import _cuda
-
     for key, col in zip(STATIC_KEYS, cols):
         _check(col, key, (torch.int32,), 2)
         if col.shape != cols[0].shape:
@@ -763,8 +754,6 @@ def batch_step(statics, dyn, splits, sched, delete_rows):
     int32 and NULL-padded.  Returns ``dyn``."""
     if not _on_cuda(*_yata_inputs(statics, dyn, splits, sched, delete_rows)):
         return batch_step_plain(statics, dyn, splits, sched, delete_rows)
-    from . import _cuda
-
     _check_yata(statics, dyn, splits, sched, delete_rows)
     _check_step_shapes(splits, sched, (0, 4), delete_rows)
     right = dyn[0]
@@ -867,8 +856,6 @@ def batch_step_levels(statics, dyn, splits, lv_sched, delete_rows,
     extra = () if counter is None else (counter,)
     if not _on_cuda(*_yata_inputs(statics, dyn, *args), *extra):
         return batch_step_levels_plain(statics, dyn, *args, counter=counter)
-    from . import _cuda
-
     _check_yata(statics, dyn, splits, lv_sched, delete_rows, scratch_base)
     _check_step_shapes(splits, lv_sched, (0, 0, 8), delete_rows)
     right = dyn[0]
@@ -934,8 +921,6 @@ def apply_plan_shared(dyn, lanes, k_l, k_h, k_d):
     right_link, deleted, starts = dyn
     if not _on_cuda(right_link, deleted, starts, lanes):
         return apply_plan_shared_plain(dyn, lanes, k_l, k_h, k_d)
-    from . import _cuda
-
     _check(right_link, "right_link", (torch.int32,), 2)
     _check(deleted, "deleted", (torch.bool,), 2)
     _check(starts, "starts", (torch.int32,), 2)
@@ -982,8 +967,6 @@ def batch_step_levels_shared(statics, dyn, splits, lv_sched, delete_rows,
     cols = [statics[k] for k in STATIC_KEYS]
     if not _on_cuda(*cols, *dyn, *args):
         return batch_step_levels_shared_plain(statics, dyn, *args)
-    from . import _cuda
-
     right, deleted, starts = dyn
     _check(right, "right_link", (torch.int32,), 2)
     _check(deleted, "deleted", (torch.bool,), 2)
@@ -1108,8 +1091,6 @@ def conflict_scan(client, clock, length, o_cl, o_ck, r_cl, r_ck,
     ins = cols if doc_id is None else (*cols, doc_id)
     if not _on_cuda(*ins):
         return conflict_scan_plain(*cols, doc_id)
-    from . import _cuda
-
     n = client.shape[0]
     for t, name in zip(ins, _SCAN_COLS + ("doc_id",)):
         _check(t, name, (torch.int64,), 1)
@@ -1136,17 +1117,19 @@ def anchor_lookup_plain(flat_key, q_key):
 def anchor_lookup(flat_key, q_key):
     """``searchsorted(flat_key, q_key, side="right") - 1`` over a sorted
     int64 haystack: the last fragment starting at or before each query
-    key, or -1.  Both are ``[n]`` int64; returns ``[len(q_key)]`` int64."""
+    key, or -1.  Both are ``[n]`` int64; returns ``[len(q_key)]`` int64.
+    On CUDA it is the one-shard launch of :func:`sharded_anchor_lookup`'s
+    kernel."""
     if not _on_cuda(flat_key, q_key):
         return anchor_lookup_plain(flat_key, q_key)
-    from . import _cuda
-
     _check(flat_key, "flat_key", (torch.int64,), 1)
     _check(q_key, "q_key", (torch.int64,), 1)
     out = torch.empty_like(q_key)
-    if q_key.shape[0]:
-        _cuda.anchor_lookup(flat_key, q_key, out)
-        launches["anchor_lookup"] += 1
+    n = q_key.shape[0]
+    if n:
+        launches["anchor_lookup"] += _cuda.anchor_lookup(
+            [flat_key.data_ptr(), flat_key.shape[0], q_key.data_ptr(),
+             out.data_ptr(), n], q_key.device)
     return out
 
 
@@ -1155,20 +1138,67 @@ def sharded_anchor_lookup_plain(hays, q_blocks):
     return [anchor_lookup_plain(h, q) for h, q in zip(hays, q_blocks)]
 
 
+def _device_groups(devices) -> dict:
+    """The shards of each distinct device, in the order the devices first
+    appear: ``{device: [shard index, ...]}``."""
+    groups: dict = {}
+    for s, dev in enumerate(devices):
+        groups.setdefault(dev, []).append(s)
+    return groups
+
+
+def _same_device(s: int, hay, dev) -> None:
+    if hay.device != dev:
+        raise ValueError(f"shard {s}: haystack on {hay.device}, queries on "
+                         f"{dev}")
+
+
+def _lookup_on_device(dev, shards, hays, q_blocks, out) -> None:
+    """K13 for the ``shards`` that lie on the CUDA device ``dev``: one
+    output buffer, whose consecutive views become ``out[s]``, and one
+    launch (a round per :data:`_cuda.LOOKUP_MAX_SHARDS` shards)."""
+    sizes = [q_blocks[s].shape[0] for s in shards]
+    buf = torch.empty(sum(sizes), dtype=torch.int64, device=dev)
+    views = buf.split(sizes) if len(shards) > 1 else (buf,)
+    ptr = buf.data_ptr()
+    desc = []
+    checked = None  # the shards of a device mostly share one haystack
+    for s, view, n in zip(shards, views, sizes):
+        hay, q = hays[s], q_blocks[s]
+        if hay is not checked:
+            _same_device(s, hay, dev)
+            _check(hay, "flat_key", (torch.int64,), 1)
+            checked = hay
+        _check(q, "q_key", (torch.int64,), 1)
+        out[s] = view
+        if n:
+            desc += (hay.data_ptr(), hay.shape[0], q.data_ptr(), ptr, n)
+        ptr += 8 * n
+    if desc:
+        launches["sharded_lookup"] += _cuda.anchor_lookup(desc, dev)
+
+
 @profiled("sharded_lookup")
 def sharded_anchor_lookup(hays, q_blocks):
     """K13, the chunk anchor lookup sharded over the doc mesh: each
-    shard's query block searched by :func:`anchor_lookup` in the copy of
-    the haystack that lies on its device (``hays[s]``, one copy per
-    distinct device, shared by the shards there).  Returns the per-shard
-    ``[len(q_blocks[s])]`` int64 candidates."""
+    shard's query block searched, as :func:`anchor_lookup` does, in the
+    copy of the haystack that lies on its device (``hays[s]``, one copy
+    per distinct device, shared by the shards there).  The shards of one
+    CUDA device share one output buffer and one launch.  Returns the
+    per-shard ``[len(q_blocks[s])]`` int64 candidates (views of that
+    buffer)."""
     if len(hays) != len(q_blocks):
         raise ValueError("one haystack per query block")
-    out = []
-    for hay, q in zip(hays, q_blocks):
-        out.append(anchor_lookup(hay, q))
-        if q.is_cuda and q.shape[0]:
-            launches["sharded_lookup"] += 1
+    out = [None] * len(q_blocks)
+    for dev, shards in _device_groups([q.device for q in q_blocks]).items():
+        if dev.type == "cuda":
+            _lookup_on_device(dev, shards, hays, q_blocks, out)
+        elif dev.type == "cpu":
+            for s in shards:
+                _same_device(s, hays[s], dev)
+                out[s] = anchor_lookup_plain(hays[s], q_blocks[s])
+        else:
+            raise ValueError(f"unsupported device {dev}")
     return out
 
 
@@ -1187,6 +1217,13 @@ def shard_fold_plain(parts, op: str = "sum"):
     return stacked.sum(0).to(torch.int32)  # int64 sum, wrapped to int32
 
 
+def _mixed_partials(parts) -> ValueError:
+    return ValueError(
+        "partials must all be on the CPU or on CUDA devices, got "
+        f"{sorted(str(p.device) for p in parts)}"
+    )
+
+
 @profiled("shard_fold")
 def shard_fold(parts, op: str = "sum"):
     """The cross-shard reduction of the doc mesh, the port's ``psum``
@@ -1194,39 +1231,36 @@ def shard_fold(parts, op: str = "sum"):
     equal int32 partials folded elementwise into a fresh tensor on the
     device of ``parts[0]``, the owner.  A partial on another CUDA device
     is copied to the owner first, device to device; the partials on the
-    owner's device are read where they lie."""
+    owner's device are read where they lie.  On CUDA: one allocation,
+    one device and shape check a partial and one call of the kernel's
+    entry, which launches once per 64 partials."""
     if op not in FOLD_OPS:
         raise ValueError(f"op must be one of {FOLD_OPS}, got {op!r}")
     if not parts:
         raise ValueError("nothing to fold")
-    kinds = {p.device.type for p in parts}
-    if kinds == {"cpu"}:
-        return shard_fold_plain(parts, op)
-    if kinds != {"cuda"}:
-        raise ValueError(
-            f"partials must all be on the CPU or on CUDA devices, got "
-            f"{sorted(str(p.device) for p in parts)}"
-        )
-    from . import _cuda
-
     owner = parts[0].device
+    if owner.type == "cpu" and all(p.device.type == "cpu" for p in parts):
+        return shard_fold_plain(parts, op)
+    if owner.type != "cuda":
+        raise _mixed_partials(parts)
     shape = parts[0].shape
+    ptrs = []
+    copies = []  # partials copied from other cards, alive until launched
     for p in parts:
-        _check(p, "partial", (torch.int32,), len(shape))
-        if p.shape != shape:
+        if p.device != owner:
+            if p.device.type != "cuda":
+                raise _mixed_partials(parts)
+            p = p.to(owner)
+            copies.append(p)
+        if p.dtype != torch.int32 or p.shape != shape or not p.is_contiguous():
+            _check(p, "partial", (torch.int32,), len(shape))
             raise ValueError("partials disagree in shape")
-    local = [p if p.device == owner else p.to(owner) for p in parts]
+        ptrs.append(p.data_ptr())
     out = torch.empty(shape, dtype=torch.int32, device=owner)
     n = out.numel()
-    code = FOLD_OPS.index(op)
-    k = _cuda.FOLD_MAX_PARTS
     if n:
-        _cuda.shard_fold(local[:k], n, code, out)
-        launches["shard_fold"] += 1
-        # more than k partials: later rounds fold into the running result
-        for i in range(k, len(local), k - 1):
-            _cuda.shard_fold([out, *local[i : i + k - 1]], n, code, out)
-            launches["shard_fold"] += 1
+        launches["shard_fold"] += _cuda.shard_fold(
+            ptrs, n, FOLD_OPS.index(op), out)
     return out
 
 

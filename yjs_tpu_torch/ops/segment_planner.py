@@ -48,7 +48,7 @@ import os
 
 import numpy as np
 
-from ..parallel.mesh import put_host, shard_rows
+from ..parallel.mesh import put_host
 from . import kernels
 from . import plan_cache as _pc
 
@@ -239,13 +239,44 @@ def _sharded_lookup(devices, flat_key, q_key) -> np.ndarray:
     """The chunk anchor lookup sharded over a doc mesh (K13): the padded
     haystack is copied once to each distinct device of ``devices`` (the
     search space every shard shares), the padded queries split into one
-    equal block a shard, and each shard binary-searches its block.
-    Returns the host int64 candidates of every query."""
-    hay = {dev: put_host(flat_key, dev) for dev in dict.fromkeys(devices)}
-    out = kernels.sharded_anchor_lookup(
-        [hay[d] for d in devices], shard_rows(q_key, devices)
-    )
-    return np.concatenate([c.cpu().numpy() for c in out])
+    equal block a shard, and each shard binary-searches its block.  Each
+    distinct device gets its shards' query blocks in one copy (pinned,
+    non-blocking) and gives its results back in one.  Returns the host
+    int64 candidates of every query."""
+    n = len(devices)
+    if not q_key.shape[0]:
+        return np.empty(0, np.int64)
+    if q_key.shape[0] % n:
+        raise ValueError(
+            f"{q_key.shape[0]} queries do not split over {n} shards"
+        )
+    blk = q_key.shape[0] // n
+    groups = kernels._device_groups(devices)
+    hays, q_blocks = [None] * n, [None] * n
+    for dev, shards in groups.items():
+        hay = put_host(flat_key, dev)
+        first, last = shards[0], shards[-1]
+        if last - first + 1 == len(shards):  # consecutive rows: a view
+            rows = q_key[first * blk : (last + 1) * blk]
+        else:
+            rows = np.concatenate([q_key[s * blk : (s + 1) * blk]
+                                   for s in shards])
+        q_dev = put_host(rows, dev)
+        for s, q in zip(shards, q_dev.split(blk)):
+            hays[s], q_blocks[s] = hay, q
+    out = kernels.sharded_anchor_lookup(hays, q_blocks)
+    cand = np.empty(q_key.shape[0], np.int64)
+    for dev, shards in groups.items():
+        if dev.type == "cuda":
+            # the shards' results: consecutive views of one device buffer
+            first = out[shards[0]]
+            whole = (first if first._base is None else first._base).cpu()
+            parts = whole.numpy().reshape(len(shards), blk)
+        else:
+            parts = [out[s].numpy() for s in shards]
+        for s, part in zip(shards, parts):
+            cand[s * blk : (s + 1) * blk] = part
+    return cand
 
 
 def plan_chunk(items, mode: str | None = None, mesh=None, device=None):

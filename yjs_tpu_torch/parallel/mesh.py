@@ -197,14 +197,24 @@ def _placed(x, devices) -> list:
 
 
 def _zero_counters(dyn) -> list[torch.Tensor]:
-    return [torch.zeros(2, dtype=torch.int32, device=t[0].device)
-            for t in dyn]
+    """Each shard's zeroed ``[2]`` int32 progress counter: one ``[S_dev,
+    2]`` block a device, zeroed once, whose rows go to its shards."""
+    from ..ops import kernels
+
+    out = [None] * len(dyn)
+    groups = kernels._device_groups([t[0].device for t in dyn])
+    for dev, shards in groups.items():
+        block = torch.zeros((len(shards), 2), dtype=torch.int32, device=dev)
+        for row, s in zip(block, shards):
+            out[s] = row
+    return out
 
 
 def fold_metrics(counters, plain: bool = False) -> dict:
     """The global progress counters of a sharded step: the per-shard
-    ``[2]`` int32 counters summed by :func:`kernels.shard_fold` (the
-    reference's ``psum``), read back to ``{"integrated", "deleted"}``."""
+    ``[2]`` int32 counters (rows of :func:`_zero_counters`' blocks)
+    summed by :func:`kernels.shard_fold` (the reference's ``psum``), read
+    back to ``{"integrated", "deleted"}``."""
     from ..ops import kernels
 
     fold = kernels.shard_fold_plain if plain else kernels.shard_fold
