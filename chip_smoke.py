@@ -122,6 +122,13 @@ script exits non-zero:
    and ``host_us`` (one call's host time by ``time.perf_counter`` over
    1000 calls, split into the profiler, the checks and allocation, the
    device guard and stream lookup, and the ctypes call with its launch),
+   K14's and K15's rows add ``host_us`` too (K15's on an empty schedule
+   of the same shapes, so that the calls do no YATA work), the devices
+   their shards lie on, ``launches_a_call`` (the wrappers' launch
+   counts over one call: one launch sequence a device, checked) and
+   ``kernels_a_call`` (the kernels one call launches, by name, from
+   ``torch.profiler``, which may lose an event: checked to be no more
+   than one a device);
    K13's ``library_one_ms`` (one ``torch.searchsorted`` over the whole
    query, which on one card computes the same function) and K11's time
    with its shared-memory sample staged and not staged, in turns, each
@@ -1646,7 +1653,7 @@ def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
     # K14 at the apply lane's flush-1 lanes
     tables, lanes, key = mfig["lanes"]
     parts = list(lanes)
-    fn = pm.sharded_apply_plan(mesh, "docs", *key)
+    fn = fn_k14 = pm.sharded_apply_plan(mesh, "docs", *key)
     pfn = pm.sharded_apply_plan(mesh, "docs", *key, plain=True)
     got, gc = fn(fresh(tables), parts)
     ref, rc = pfn(fresh(tables), parts)
@@ -1657,6 +1664,7 @@ def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
     b_loc, n1 = tables[0][0].shape
     s1 = tables[0][2].shape[1]
     nbytes = sum(apply_lanes_bytes(p, b_loc, key, n1, s1) + 8 for p in parts)
+    n_devices = len({str(d) for d in mesh.axis_devices()})
     rows.append({
         "name": "sharded_apply_plan", "route": "cuda",
         "source": "yjs_tpu_torch/csrc/apply_lanes.cu",
@@ -1664,7 +1672,10 @@ def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
         "shape": f"shards={len(parts)} B_loc={b_loc} N+1={n1} S+1={s1} "
                  f"lanes={tuple(lanes.shape)} {lanes.dtype}",
         "launches": m_launches["sharded_apply_plan"], "max_abs_err": err,
+        "devices": n_devices,
+        "kernels_a_call": kernels_a_call(lambda: fn(base, parts)),
         "ms": cuda_ms(lambda: fn(base, parts)),
+        "host_us": host_split(lambda: fn(base, parts)),
         "device_ms": device_ms(lambda: fn(base, parts)),
         "plain_ms": cuda_ms(lambda: pfn(base, parts), 5),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -1710,6 +1721,11 @@ def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
         for s in range(len(tables))
     )
     chain = max(int(st["chain"].max()) for st in stats)
+    # the host's share at the same shapes with an empty schedule (no lane
+    # has a row), so that a thousand calls back to back do no YATA work
+    idle = fresh(tables)
+    null = [[torch.full_like(t, K.NULL) for t in blk]
+            for blk in (splits, lv, dels)]
     rows.append({
         "name": "sharded_batch_step", "route": "cuda",
         "source": "yjs_tpu_torch/csrc/yata.cu",
@@ -1717,11 +1733,38 @@ def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
         "shape": f"shards={len(tables)} B_loc={b_loc} N+1={n1} "
                  f"schedule={tuple(lv[0].shape)} a shard",
         "launches": m_launches["sharded_batch_step"], "max_abs_err": err,
+        "devices": n_devices,
+        "kernels_a_call": kernels_a_call(launch, restore),
         "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "host_us": host_split(lambda: fn(statics, idle, *null, scratch)),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "limited_by": "dep_chain", "dep_chain": chain,
         "ns_per_dep_load": (dev_ms or ms) * 1e6 / max(1, chain),
     })
+
+    # one launch sequence a device, whatever the shards on it: the
+    # wrappers' counts over one more call are the proof (and no shard went
+    # through a one-shard wrapper); a trace may lose a kernel's event but
+    # never adds one, so the trace's counts only bound ours from above
+    for row, call, ours in (
+            (rows[0], lambda: fn_k14(base, parts),
+             ("scan_counts", "apply_dense_heads_dels", "apply_sparse")),
+            (rows[1], lambda: (restore(), launch()),
+             ("batch_step_levels_kernel",))):
+        before = dict(K.launches)
+        call()
+        torch.cuda.synchronize()
+        grew = {k: v - before.get(k, 0) for k, v in K.launches.items()
+                if v != before.get(k, 0)}
+        row["launches_a_call"] = grew
+        check(grew == {row["name"]: n_devices},
+              f"{row['name']}: launches {grew} in one call on {n_devices} "
+              "device(s)")
+        seen = {k: v for k, v in (row["kernels_a_call"] or {}).items()
+                if k.startswith(ours)}
+        check(all(v <= n_devices for v in seen.values()),
+              f"{row['name']}: the trace shows {seen} in one call on "
+              f"{n_devices} device(s)")
 
     # K16 over the 4096 docs' sync columns, the doc axis over the shards
     row_slot, row_end, n_slots = mfig["sv_cols"]
@@ -1961,6 +2004,39 @@ def device_ms(fn, n: int = TIMED_LAUNCHES, restore=None):
         and not (restore is not None and e.key.startswith("Memcpy"))
     )
     return us / 1e3 / n if us > 0 else None
+
+
+def kernels_a_call(fn, restore=None, n: int = 5) -> dict | None:
+    """The CUDA kernels one call of ``fn()`` launches, by name (the
+    template and namespace kept, the parameters cut): a ``torch.profiler``
+    trace of ``n`` calls after an untraced warm-up call; ``restore()``
+    runs before each call, and copies are left out; PyTorch's own kernels,
+    such as the counters' zero fill, are not.  Each count is divided by ``n``.  A trace may lose an
+    event, so a count can fall short of the launches, never exceed them.
+    None when the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if restore is not None:
+        restore()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            if restore is not None:
+                restore()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.key.startswith("Memcpy")):
+            continue
+        name = e.key.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].removeprefix("void ")[-80:]
+        out[name] = out.get(name, 0) + e.count / n
+    return out or None
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:

@@ -1337,3 +1337,212 @@ def test_meshed_engine_on_card_matches_cpu_mesh(cuda_device, hang_guard, lane,
         assert grew["shard_fold"] > 0
     if mirror == "python":
         assert grew["sharded_lookup"] > 0
+
+
+# -- K14 and K15: one launch a device, the shards by value -----------------------
+
+
+def _offsets(sizes):
+    return np.concatenate([[0], np.cumsum(sizes)]).astype(int)
+
+
+def sharded_apply_case(seed: int, sizes, n1: int, s1: int, dtype):
+    """Per-shard K14 inputs of ``sizes`` docs each (0 allowed): each
+    shard's tables and lanes from :func:`apply_case`, its sections padded
+    to the widths every shard shares with the packer's fills."""
+    cases = [apply_case(seed + s, b, n1, s1, dtype) if b else None
+             for s, b in enumerate(sizes)]
+    widths = tuple(max(c[2][k] for c in cases if c) for k in range(4))
+    fills = ((NULL,), (n1, NULL), (s1, NULL), (n1,))
+    tables, lanes = [], []
+    for b, case in zip(sizes, cases):
+        if case is None:
+            tables.append((np.zeros((0, n1), np.int32),
+                           np.zeros((0, n1), bool), np.zeros((0, s1), np.int32)))
+            parts = [np.full(w, f, np.int64) for w, fs in zip(widths, fills)
+                     for f in fs]
+            lanes.append(np.concatenate(parts).astype(dtype))
+            continue
+        tabs, ln, own = case
+        parts, o = [ln[: 4 * b].astype(np.int64)], 4 * b
+        for w, mine, fs in zip(widths, own, fills):
+            for f in fs:
+                sec = np.full(w, f, np.int64)
+                sec[:mine] = ln[o : o + mine]
+                parts.append(sec)
+                o += mine
+        tables.append(tabs)
+        lanes.append(np.concatenate(parts).astype(dtype))
+    return tables, lanes, widths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("sizes", [[64], [5, 7], [3, 9, 0, 4], [7] * 16 + [2]])
+def test_sharded_apply_kernel_matches_plain(cuda_device, sizes, dtype):
+    """K14 over 1, 2, 4 and 17 shards of one card, one with no docs:
+    every shard's tables equal the plain version's, each counter its
+    plain counter (twice over, so they add), and the launches grow by
+    one sequence per 16 shards with docs."""
+    tables, lanes, widths = sharded_apply_case(81, sizes, 129, 17, dtype)
+    rows = [torch.from_numpy(r).to(cuda_device) for r in lanes]
+    ref = [_torch(t, cuda_device) for t in tables]
+    got = [_torch(t, cuda_device) for t in tables]
+    ref_c = list(torch.zeros((len(sizes), 2), dtype=torch.int32,
+                             device=cuda_device))
+    got_c = list(torch.zeros((len(sizes), 2), dtype=torch.int32,
+                             device=cuda_device))
+    live = sum(1 for b in sizes if b)
+    for _ in range(2):
+        for s in range(len(sizes)):
+            kernels.apply_lanes_plain(ref[s], rows[s], *widths,
+                                      counter=ref_c[s])
+        before = dict(kernels.launches)
+        out = kernels.sharded_apply_lanes(got, rows, widths, got_c)
+        torch.cuda.synchronize()
+        assert out is got
+        assert (kernels.launches["sharded_apply_plan"]
+                == before["sharded_apply_plan"] + -(-live // 16))
+        assert kernels.launches["apply_lanes"] == before["apply_lanes"]
+        for r, g in zip(ref, got):
+            for a, b in zip(r, g):
+                assert torch.equal(a, b)
+    for r, g in zip(ref_c, got_c):
+        assert torch.equal(r, g)
+    assert int(sum(c[0] for c in got_c)) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [[4], [2, 2], [1, 3, 0, 2], [2] * 16 + [1]])
+def test_sharded_levels_kernel_matches_plain(cuda_device, hang_guard, sizes):
+    """K15 over 1, 2, 4 and 17 shards of one card, one with no docs, stage
+    by stage: every shard's tables equal the plain version's, the
+    counters accumulated over the stages equal the plain ones, and each
+    call makes one launch per 16 shards with docs."""
+    b = sum(sizes)
+    off = _offsets(sizes)
+    cap, s1, stages = yata_case(71 + len(sizes), b, w_pad=33)
+
+    def blocks(a):
+        return [torch.from_numpy(np.ascontiguousarray(a[o : o + n])).to(
+            cuda_device) for o, n in zip(off, sizes)]
+
+    ref = [tuple(x) for x in zip(*(blocks(t)
+                                   for t in yata_tables(b, cap, s1)))]
+    got = [tuple(x) for x in zip(*(blocks(t)
+                                   for t in yata_tables(b, cap, s1)))]
+    ref_c = list(torch.zeros((len(sizes), 2), dtype=torch.int32,
+                             device=cuda_device))
+    got_c = list(torch.zeros((len(sizes), 2), dtype=torch.int32,
+                             device=cuda_device))
+    live = sum(1 for n in sizes if n)
+    for st in stages:
+        cols = {k: blocks(st[k]) for k in kernels.STATIC_KEYS}
+        statics = [{k: cols[k][s] for k in cols} for s in range(len(sizes))]
+        args = [blocks(st[k]) for k in ("splits", "lv", "dels", "scratch")]
+        for s in range(len(sizes)):
+            kernels.batch_step_levels_plain(statics[s], ref[s],
+                                            *(a[s] for a in args),
+                                            counter=ref_c[s])
+        before = dict(kernels.launches)
+        kernels.sharded_batch_step_levels(statics, got, *args, got_c)
+        torch.cuda.synchronize()
+        assert (kernels.launches["sharded_batch_step"]
+                == before["sharded_batch_step"] + -(-live // 16))
+        assert (kernels.launches["batch_step_levels"]
+                == before["batch_step_levels"])
+        for r, g in zip(ref, got):
+            for x, y in zip(r, g):
+                assert torch.equal(x, y)
+    for r, g in zip(ref_c, got_c):
+        assert torch.equal(r, g)
+    assert int(sum(c[0] for c in got_c)) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 4, 17])
+def test_sharded_steps_launch_once_a_device(cuda_device, hang_guard,
+                                            n_shards):
+    """Through the mesh's callables on shards that share the card: one
+    launch (K15) or launch sequence (K14) a call for up to 16 shards, two
+    for 17; tables and folded counters equal the plain callables'."""
+    from yjs_tpu_torch.parallel import mesh as pm
+
+    mesh = _mesh_of(cuda_device, n_shards)
+    b_loc = 2
+    tables, lanes, widths = sharded_apply_case(
+        90, [b_loc] * n_shards, 65, 9, np.int32)
+    before = kernels.launches["sharded_apply_plan"]
+    got, gc = pm.sharded_apply_plan(mesh, "docs", *widths)(
+        [_torch(t, cuda_device) for t in tables], np.stack(lanes))
+    ref, rc = pm.sharded_apply_plan(mesh, "docs", *widths, plain=True)(
+        [_torch(t, cuda_device) for t in tables], np.stack(lanes))
+    torch.cuda.synchronize()
+    assert (kernels.launches["sharded_apply_plan"]
+            == before + -(-n_shards // 16))
+    for g, r in zip(got, ref):
+        for x, y in zip(g, r):
+            assert torch.equal(x, y)
+    assert pm.fold_metrics(gc) == pm.fold_metrics(rc, plain=True)
+
+    b = b_loc * n_shards
+    cap, s1, stages = yata_case(91, b, w_pad=4)
+    st = stages[-1]
+    devs = mesh.axis_devices()
+    statics = [dict(zip(kernels.STATIC_KEYS, c)) for c in zip(*(
+        pm.shard_rows(st[k].copy(), devs) for k in kernels.STATIC_KEYS))]
+    args = [st[k] for k in ("splits", "lv", "dels", "scratch")]
+
+    def tables():
+        return [tuple(x) for x in zip(*(
+            pm.shard_rows(t, devs) for t in yata_tables(b, cap, s1)))]
+
+    before = kernels.launches["sharded_batch_step"]
+    got, gc = pm.sharded_batch_step(mesh, "docs")(statics, tables(), *args)
+    ref, rc = pm.sharded_batch_step(mesh, "docs", plain=True)(
+        statics, tables(), *args)
+    torch.cuda.synchronize()
+    assert (kernels.launches["sharded_batch_step"]
+            == before + -(-n_shards // 16))
+    for g, r in zip(got, ref):
+        for x, y in zip(g, r):
+            assert torch.equal(x, y)
+    assert pm.fold_metrics(gc) == pm.fold_metrics(rc, plain=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharded", [False, True])
+def test_levels_visit_scratch_filled_each_call(cuda_device, hang_guard,
+                                               sharded, monkeypatch):
+    """The visit scratch (one block a device, reused from the caching
+    allocator) is filled for every call: with the allocator's free blocks
+    holding large marks (which read as "visited" unless overwritten) and
+    ``epoch_max`` 40 (a refill inside the scan every few items), K6 and
+    K15 equal the plain version stage by stage."""
+    monkeypatch.setattr(kernels, "EPOCH_MAX", 40)
+    b = 6
+    cap, s1, stages = yata_case(97, b, w_pad=33)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    ref = _torch(yata_tables(b, cap, s1), cuda_device)
+    got = _torch(yata_tables(b, cap, s1), cuda_device)
+    for st in stages:
+        statics = {k: to(st[k]) for k in kernels.STATIC_KEYS}
+        args = [to(st[k]) for k in ("splits", "lv", "dels", "scratch")]
+        kernels.batch_step_levels_plain(statics, ref, *args)
+        torch.cuda.synchronize()
+        # free blocks of every size the scratch may take, full of marks
+        junk = [torch.full((n,), 2**30, dtype=torch.int32, device=cuda_device)
+                for n in (b * (cap + 1), 2 * b * (cap + 1), 1 << 20)]
+        del junk
+        if sharded:
+            half = b // 2
+            kernels.sharded_batch_step_levels(
+                [{k: v[:half] for k, v in statics.items()},
+                 {k: v[half:] for k, v in statics.items()}],
+                [tuple(t[:half] for t in got), tuple(t[half:] for t in got)],
+                *([a[:half], a[half:]] for a in args), [None, None])
+        else:
+            kernels.batch_step_levels(statics, got, *args)
+        torch.cuda.synchronize()
+        for r, g in zip(ref, got):
+            assert torch.equal(r, g)

@@ -178,6 +178,65 @@ def test_sharded_batch_step_matches_jax(jmesh8, mesh8, levels_case):
     assert tmesh.fold_metrics(carried) == total
 
 
+@pytest.mark.parametrize("n_shards", [1, 2])
+@pytest.mark.parametrize("dtype", [np.int32, np.int16])
+def test_sharded_apply_plan_sub_mesh_matches_jax(n_shards, dtype):
+    """K14 (the kernel path, which takes the plain version for CPU
+    shards, and ``plain=True``) on 1- and 2-shard meshes against the JAX
+    ``shard_map`` kernel on a mesh of the same size."""
+    jm = jmesh.doc_mesh(n_shards, backend="cpu")
+    tm = doc_mesh(n_shards, backend="cpu")
+    widths, lanes, tables = apply_case(20 + n_shards, n_shards=n_shards,
+                                       b_loc=3)
+    lanes = lanes.astype(dtype)
+    out, metrics = jmesh.sharded_apply_plan(jm, "docs", *widths)(
+        tuple(jnp.asarray(t) for t in tables), jnp.asarray(lanes))
+    want_m = {k: int(v) for k, v in metrics.items()}
+    assert want_m["integrated"] > 0 and want_m["deleted"] > 0
+    for plain in (False, True):
+        fn = tmesh.sharded_apply_plan(tm, "docs", *widths, plain=plain)
+        dyn, counters = fn(shard_tables(tm, *tables), lanes)
+        for w, g in zip(out, gathered(dyn)):
+            np.testing.assert_array_equal(np.asarray(w), g)
+        assert tmesh.fold_metrics(counters, plain=plain) == want_m
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_sharded_batch_step_sub_mesh_matches_jax(n_shards, levels_case):
+    """K15 on 1- and 2-shard meshes against the JAX ``shard_map`` step on
+    a mesh of the same size, stage by stage: tables and folded counters,
+    the counters also carried across the stages."""
+    cap, s1, stages = levels_case
+    jm = jmesh.doc_mesh(n_shards, backend="cpu")
+    tm = doc_mesh(n_shards, backend="cpu")
+    step = jmesh.sharded_batch_step(jm, "docs")
+    dyn_j = tuple(jnp.asarray(a) for a in yata_tables(8, cap, s1))
+    runs = {plain: [tmesh.sharded_batch_step(tm, "docs", plain=plain),
+                    shard_tables(tm, *yata_tables(8, cap, s1)), None]
+            for plain in (False, True)}
+    total = {"integrated": 0, "deleted": 0}
+    for st in stages:
+        statics = {k: jnp.asarray(v) for k, v in _stage_statics(st).items()}
+        dyn_j, m = step(statics, dyn_j, *(jnp.asarray(st[k]) for k in
+                                          ("splits", "lv", "dels", "scratch")))
+        want_m = {k: int(v) for k, v in m.items()}
+        total = {k: total[k] + want_m[k] for k in total}
+        cols = [dict(zip(tk.STATIC_KEYS, c)) for c in zip(*(
+            tmesh.shard_rows(st[k].copy(), tm.axis_devices())
+            for k in tk.STATIC_KEYS))]
+        args = [st[k] for k in ("splits", "lv", "dels", "scratch")]
+        for plain, run in runs.items():
+            fn, dyn, carried = run
+            _, once = fn(cols, shard_tables(tm, *gathered(dyn)), *args)
+            run[1], run[2] = fn(cols, dyn, *args, counters=carried)
+            assert tmesh.fold_metrics(once, plain=plain) == want_m
+            for w, g in zip(dyn_j, gathered(run[1])):
+                np.testing.assert_array_equal(np.asarray(w), g)
+    assert total["integrated"] > 0 and total["deleted"] > 0
+    for plain, (_fn, _dyn, carried) in runs.items():
+        assert tmesh.fold_metrics(carried, plain=plain) == total
+
+
 def sv_case(seed, b=8, n=16, slots=4):
     g = np.random.default_rng(seed)
     return (g.integers(-1, slots + 1, size=(b, n)).astype(np.int32),
@@ -369,6 +428,229 @@ def test_zero_counters_interleaved_devices():
     assert counters[1]._base is counters[3]._base is counters[4]._base
     assert counters[1]._base.shape == (3, 2)
     assert int(cpu_block.abs().sum()) == 0
+
+
+# -- K14/K15 launch descriptors: one launch a device, shards by value ----------
+
+ROUNDS = {1: 1, 4: 1, 16: 1, 17: 2, 33: 3}  # shards -> launches, 16 a round
+
+
+def record_entry(monkeypatch, row: int) -> dict:
+    """Replaces ``_cuda._call``: records the entry, its scalars and the
+    descriptor the entry would read (``row`` ints a shard)."""
+    import ctypes
+
+    from yjs_tpu_torch.ops import _cuda
+
+    seen = {}
+
+    def fake(entry, device, ptr, n, *scalars):
+        seen.update(entry=entry, device=device, n=n, scalars=scalars,
+                    rows=list((ctypes.c_longlong * (row * n)).from_address(ptr)))
+
+    monkeypatch.setattr(_cuda, "_call", fake)
+    return seen
+
+
+def levels_shards(n, b=2, n1=9, s1=5, w=3, n_lv=2, zero=()):
+    """Per-shard K15 inputs on the CPU (shards in ``zero`` hold no docs):
+    statics dicts, tables, splits, lv, dels, scratch_base and counter
+    rows of one block."""
+    g = np.random.default_rng(n)
+    out = [[] for _ in range(7)]
+    block = torch.zeros((n, 2), dtype=torch.int32)
+    for s in range(n):
+        bs = 0 if s in zero else b
+
+        def full(*shape, v=tk.NULL):
+            return torch.full(shape, v, dtype=torch.int32)
+
+        out[0].append({k: torch.from_numpy(
+            g.integers(-1, n1, (bs, n1)).astype(np.int32))
+            for k in tk.STATIC_KEYS})
+        out[1].append((full(bs, n1), torch.zeros((bs, n1), dtype=torch.bool),
+                       full(bs, s1)))
+        for k, t in enumerate((full(bs, 1, 2), full(bs, n_lv, w, 8),
+                               full(bs, 2), full(bs, v=n1 - 2 * w - 1)), 2):
+            out[k].append(t)
+        out[6].append(block[s])
+    return out
+
+
+
+@pytest.mark.parametrize("n_shards", sorted(ROUNDS))
+def test_levels_descriptor_rows_and_rounds(n_shards, monkeypatch):
+    """K15's descriptor: 17 ints a shard in shard order (the six statics,
+    right, deleted, starts, its rows of the device's one visit and one
+    fast scratch, splits, lv, dels, scratch_base, counter, doc count), the
+    shared dims once, and one launch per 16 shards, the entry reading
+    exactly these rows."""
+    from yjs_tpu_torch.ops import _cuda
+
+    case = levels_shards(n_shards)
+    statics, dyn, splits, lv, dels, scratch, counters = case
+    desc, dims, (visit, fast) = tk._levels_desc(CPU, list(range(n_shards)),
+                                                *case)
+    assert dims == (9, 5, 1, 2, 3, 2, 3)
+    assert visit.shape == (2 * n_shards, 9) and visit.dtype == torch.int32
+    assert fast.shape == (2 * n_shards, 3) and fast.dtype == torch.uint8
+    assert len(desc) == _cuda.LEVELS_ROW * n_shards
+    for s in range(n_shards):
+        want = [*(statics[s][k].data_ptr() for k in tk.STATIC_KEYS),
+                *(t.data_ptr() for t in dyn[s]), visit[2 * s].data_ptr(),
+                fast[2 * s].data_ptr(),
+                *(t.data_ptr() for t in (splits[s], lv[s], dels[s],
+                                         scratch[s], counters[s])), 2]
+        assert desc[17 * s : 17 * (s + 1)] == want
+    seen = record_entry(monkeypatch, _cuda.LEVELS_ROW)
+    assert _cuda.batch_step_levels(desc, CPU, dims, 123) == ROUNDS[n_shards]
+    assert seen["entry"] == "ytpu_batch_step_levels_sharded"
+    assert seen["n"] == n_shards and seen["rows"] == desc
+    assert seen["scalars"] == (0, *dims, 123)
+
+
+@pytest.mark.parametrize("n_shards", sorted(ROUNDS))
+def test_apply_descriptor_rows_and_rounds(n_shards, monkeypatch):
+    """K14's descriptor: 7 ints a shard in shard order (lanes, its slice of
+    the device's one cum scratch, right, deleted, starts, counter, doc
+    count), and one launch sequence per 16 shards; int16 lanes take the
+    i16 entry."""
+    from yjs_tpu_torch.ops import _cuda
+
+    widths, lanes, tables = apply_case(n_shards, n_shards=n_shards, b_loc=2,
+                                       n1=9, s1=5, widths=(4, 2, 2, 2))
+    dyn = shard_tables(doc_mesh(n_shards, backend="cpu"), *tables)
+    for dtype in (torch.int32, torch.int16):
+        rows = [torch.from_numpy(r).to(dtype) for r in lanes]
+        counters = list(torch.zeros((n_shards, 2), dtype=torch.int32))
+        counters[-1] = None  # a shard may count nothing
+        desc, dims, cum = tk._apply_desc(CPU, list(range(n_shards)), dyn,
+                                         rows, counters, widths)
+        assert dims == (dtype == torch.int32, 9, 5)
+        assert cum.shape == (8 * n_shards,) and cum.dtype == torch.int32
+        for s in range(n_shards):
+            c = counters[s]
+            assert desc[7 * s : 7 * (s + 1)] == [
+                rows[s].data_ptr(), cum[8 * s :].data_ptr(),
+                *(t.data_ptr() for t in dyn[s]),
+                0 if c is None else c.data_ptr(), 2]
+        seen = record_entry(monkeypatch, _cuda.APPLY_ROW)
+        got = _cuda.apply_lanes(desc, CPU, *dims, *widths)
+        assert got == ROUNDS[n_shards]
+        assert seen["entry"] == ("ytpu_apply_lanes_sharded_i32"
+                                 if dtype == torch.int32
+                                 else "ytpu_apply_lanes_sharded_i16")
+        assert seen["n"] == n_shards and seen["rows"] == desc
+        assert seen["scalars"] == (9, 5, *widths)
+
+
+def test_levels_descriptor_checks_each_shard():
+    """A shard whose N+1, S+1, split, level, lane or delete width differs
+    from the first's, whose scratch_base loses the doc axis, or whose
+    tensor lies on another device raises ``ValueError`` naming it; a
+    shard with no docs is left out of the rows."""
+    n = 17
+    shards = list(range(n))
+    for s, field, bad, match in (
+        (16, 3, torch.full((2, 2, 4, 8), -1, dtype=torch.int32), "W 4"),
+        (5, 2, torch.full((2, 3, 2), -1, dtype=torch.int32), "splits 3"),
+        (9, 4, torch.full((2, 5), -1, dtype=torch.int32), "deletes 5"),
+        (3, 5, torch.zeros(3, dtype=torch.int32), r"scratch_base \[B\]"),
+        (7, 6, torch.zeros(2, dtype=torch.int32, device="meta"),
+         "counter on meta"),
+    ):
+        case = levels_shards(n)
+        case[field][s] = bad
+        with pytest.raises(ValueError, match=match):
+            tk._levels_desc(CPU, shards, *case)
+    case = levels_shards(n)
+    case[1][4] = (torch.full((2, 11), -1, dtype=torch.int32),
+                  torch.zeros((2, 11), dtype=torch.bool),
+                  torch.full((2, 5), -1, dtype=torch.int32))
+    case[0][4] = {k: torch.zeros((2, 11), dtype=torch.int32)
+                  for k in tk.STATIC_KEYS}
+    with pytest.raises(ValueError, match=r"shard 4: N\+1 11 \(shard 0: 9\)"):
+        tk._levels_desc(CPU, shards, *case)
+    case = levels_shards(n, zero=(0, 6))
+    desc, dims, (visit, _fast) = tk._levels_desc(CPU, shards, *case)
+    assert len(desc) == 17 * (n - 2) and visit.shape == (2 * (n - 2), 9)
+    assert [desc[17 * k + 15] for k in range(n - 2)] == [
+        case[6][s].data_ptr() for s in shards if s not in (0, 6)]
+
+
+def test_apply_descriptor_checks_each_shard():
+    """A shard whose lanes dtype, N+1 or S+1 differs from the first's,
+    whose lanes length does not match the widths, or whose tensor lies
+    on another device raises ``ValueError``; a shard with no docs is left
+    out of the rows and the cum scratch."""
+    widths, lanes, tables = apply_case(3, n_shards=4, b_loc=2, n1=9, s1=5,
+                                       widths=(4, 2, 2, 2))
+    dyn = shard_tables(doc_mesh(4, backend="cpu"), *tables)
+    counters = [None] * 4
+
+    def rows():
+        return [torch.from_numpy(r.copy()) for r in lanes]
+
+    bad = rows()
+    bad[2] = bad[2].to(torch.int16)
+    with pytest.raises(ValueError, match=r"shard 2: \(int32 lanes"):
+        tk._apply_desc(CPU, range(4), dyn, bad, counters, widths)
+    bad = rows()
+    bad[1] = bad[1][:-1]
+    with pytest.raises(ValueError, match="shard 1: lanes length"):
+        tk._apply_desc(CPU, range(4), dyn, bad, counters, widths)
+    wide = list(dyn)
+    wide[3] = (torch.zeros((2, 9), dtype=torch.int32),
+               torch.zeros((2, 9), dtype=torch.bool),
+               torch.zeros((2, 6), dtype=torch.int32))
+    with pytest.raises(ValueError, match=r"shard 3: \(int32 lanes"):
+        tk._apply_desc(CPU, range(4), wide, rows(), counters, widths)
+    with pytest.raises(ValueError, match="shard 0: counter on meta"):
+        tk._apply_desc(CPU, range(4), dyn, rows(),
+                       [torch.zeros(2, dtype=torch.int32, device="meta")]
+                       + counters[1:], widths)
+    empty = list(dyn)
+    empty[1] = tuple(t[:0] for t in dyn[1])
+    r = rows()
+    r[1] = r[1][8:]  # no counts: the sections alone
+    desc, _dims, cum = tk._apply_desc(CPU, range(4), empty, r, counters,
+                                      widths)
+    assert len(desc) == 21 and cum.shape == (24,)
+    assert [desc[7 * k] for k in range(3)] == [r[s].data_ptr()
+                                               for s in (0, 2, 3)]
+
+
+def test_sharded_steps_record_one_profiled_call(mesh8, levels_case):
+    """One K14 or K15 call is one profiled span under the reference's name,
+    whatever the shard count: the shards do not go through the profiled
+    one-shard wrappers."""
+    from yjs_tpu_torch.obs.prof import kernel_profiler
+
+    if not kernel_profiler().enabled:
+        pytest.skip("the kernel profiler is off in this process")
+    names = ("sharded_apply_plan", "apply_lanes", "sharded_batch_step",
+             "batch_step_levels")
+
+    def calls():
+        snap = kernel_profiler().snapshot()["kernels"]
+        return {k: snap.get(k, {}).get("compiles", 0)
+                + snap.get(k, {}).get("hits", 0) for k in names}
+
+    widths, lanes, tables = apply_case(4)
+    before = calls()
+    tmesh.sharded_apply_plan(mesh8, "docs", *widths)(
+        shard_tables(mesh8, *tables), lanes)
+    cap, s1, stages = levels_case
+    st = stages[0]
+    cols = [dict(zip(tk.STATIC_KEYS, c)) for c in zip(*(
+        tmesh.shard_rows(st[k].copy(), mesh8.axis_devices())
+        for k in tk.STATIC_KEYS))]
+    tmesh.sharded_batch_step(mesh8, "docs")(
+        cols, shard_tables(mesh8, *yata_tables(8, cap, s1)),
+        *(st[k] for k in ("splits", "lv", "dels", "scratch")))
+    grew = {k: v - before[k] for k, v in calls().items()}
+    assert grew == {"sharded_apply_plan": 1, "apply_lanes": 0,
+                    "sharded_batch_step": 1, "batch_step_levels": 0}
 
 
 # -- the cases of tests/test_parallel.py, on the port ---------------------------

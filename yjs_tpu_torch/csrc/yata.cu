@@ -21,9 +21,10 @@
 //
 // Design (simple and exact first; shared-memory state is later work):
 // - K4 integrate_item: the reference's conflict scan with visit marks in a
-//   per-doc [N+1] int32 scratch row that the wrapper fills with -1 once per
-//   launch.  Instead of the JAX kernel's fresh visit array per item, a
-//   per-doc counter runs across the whole launch: scan_base is its value
+//   per-doc [N+1] int32 scratch row that the wrapper fills with -1 once
+//   per launch (one fill a device for all its shards).
+//   Instead of the JAX kernel's fresh visit array per item, a per-doc
+//   counter runs across the whole launch: scan_base is its value
 //   when an item starts and "visited by this item" is visit[row] >=
 //   scan_base, so earlier items' marks read as unmarked.  One scan adds at
 //   most N+1 to the counter (a list has no more rows; the bound also ends a
@@ -44,16 +45,26 @@
 //   scratch_base: the B4 replay shape) is K6 instantiated with a doc stride
 //   of 0 for the static columns, splits, level schedule and deletes, so all
 //   docs read one shared copy (L2-resident); the tables, visit scratch,
-//   fast flags and scratch_base keep the doc axis.  K6's instantiation
-//   computes the same addresses as before the template.
+//   fast flags and scratch_base keep the doc axis.
+// - K6 is one launch for every shard of a device (K15, below); K6 alone
+//   is its one-shard call and K7b the same launch instantiated shared.
+//   A block has at most 128 threads (a W of 512 lanes takes four strides
+//   in (a) and (b)), so that an SM holds ten docs' chains at once.
 // - K15 sharded_batch_step (yjs_tpu/parallel/mesh.py:101) is K6 on each
 //   shard of a doc mesh plus the shard's progress counters: the schedule
 //   lanes with a row (lv[..., 0] >= 0) and the delete rows (>= 0), the
-//   reference's int32 sums before its psum.  With a progress pointer each
-//   thread counts the lanes of its gap checks and the delete rows it
-//   marks; a warp reduce, one shared atomic a warp and one global atomic
-//   a block add them into the shard's zeroed [2] counter.  K7b passes no
-//   pointer and counts nothing.
+//   reference's int32 sums before its psum.  Up to kMaxShards shards of
+//   one device travel by value in a __grid_constant__ struct, a row of 16
+//   pointers and the doc count each; the grid is (most docs, shards),
+//   blockIdx.y picks the shard and blockIdx.x the doc, and blocks past a
+//   shard's docs exit.  One launch then holds every doc of the device, so
+//   the scheduler overlaps one shard's long chains with another's short
+//   ones instead of paying a tail a shard.  The host entry launches more
+//   shards in rounds.  With a progress pointer each thread counts the
+//   lanes of its gap checks and the delete rows it marks; a warp reduce,
+//   one shared atomic a warp and one global atomic a block add them into
+//   the shard's zeroed [2] counter.  K6 alone and K7b pass no pointer and
+//   count nothing.
 // Indices follow XLA's rules: a gather wraps a negative index and clamps,
 // a scatter wraps a negative index and drops what is still out of range.
 // Client keys hold u32 bit patterns and compare unsigned (YATA case 1).
@@ -234,23 +245,59 @@ __global__ void batch_step_kernel(Statics s, int32_t* rl, uint8_t* dl,
   for (int j = 0; j < n_del; ++j) delete_row(d, dr[j]);
 }
 
+// The most shards one K6 launch takes: 16 rows of 136 bytes keep the
+// parameters under the classic 4 KB.
+constexpr int kMaxShards = 16;
+// Threads a K6 block at most, and the blocks an SM must hold at once.
+// A shard's pointers, picked by blockIdx.y, are loads from the parameter
+// bank, which the compiler would otherwise keep in registers (63 a
+// thread, 96 shared); ten blocks of 128 keep it at 48.  With 256 threads
+// and five blocks an SM the step ran 20% slower than with the pointers
+// as plain parameters; with 128 and ten, a little faster (H100).
+constexpr int kLevelThreads = 128;
+constexpr int kLevelBlocksPerSM = 10;
+
+// One shard's tensors on the launch's device: its statics, tables, its
+// rows of the device's visit and fast scratch, its schedules, its
+// progress counter (or null) and its doc count.
+struct LevelShard {
+  Statics s;
+  int32_t* rl;
+  uint8_t* dl;
+  int32_t* starts;
+  int32_t* visit;
+  uint8_t* fast;
+  const int32_t* splits;
+  const int32_t* lv;
+  const int32_t* dels;
+  const int32_t* scratch_base;
+  int32_t* progress;
+  int64_t b;
+};
+
+struct LevelShards {
+  LevelShard s[kMaxShards];
+};
+
 // kShared: statics, splits, lv and dels hold one doc's worth, read by all.
 template <bool kShared>
-__global__ void batch_step_levels_kernel(
-    Statics s, int32_t* rl, uint8_t* dl, int32_t* starts, int32_t* visit,
-    uint8_t* fast, const int32_t* __restrict__ splits,
-    const int32_t* __restrict__ lv, const int32_t* __restrict__ dels,
-    const int32_t* __restrict__ scratch_base, int n1, int s1, int n_splits,
-    int n_lv, int w, int n_del, int fast_w, int32_t epoch_max,
-    int32_t* __restrict__ progress) {
+__global__ void __launch_bounds__(kLevelThreads, kLevelBlocksPerSM)
+    batch_step_levels_kernel(const __grid_constant__ LevelShards shards,
+                             int n1, int s1, int n_splits, int n_lv, int w,
+                             int n_del, int fast_w, int32_t epoch_max) {
+  const LevelShard& sh = shards.s[blockIdx.y];
   const int64_t doc = blockIdx.x;
+  if (doc >= sh.b) return;  // the whole block: before any barrier
   const int64_t sdoc = kShared ? 0 : doc;  // the shared inputs' doc index
   const int tid = threadIdx.x, nt = blockDim.x;
-  const Doc d = doc_view(s, rl, dl, starts, visit, doc, sdoc, n1, s1);
-  uint8_t* f = fast + doc * fast_w;
-  const int64_t base = scratch_base[doc];
+  const Doc d = doc_view(sh.s, sh.rl, sh.dl, sh.starts, sh.visit, doc, sdoc,
+                         n1, s1);
+  const int32_t* __restrict__ lv = sh.lv;
+  const int32_t* __restrict__ dels = sh.dels;
+  uint8_t* f = sh.fast + doc * fast_w;
+  const int64_t base = sh.scratch_base[doc];
   const int32_t dummy = n1 - 1, s_dummy = s1 - 1;
-  if (tid == 0) split_prepass(d, splits + sdoc * n_splits * 2, n_splits);
+  if (tid == 0) split_prepass(d, sh.splits + sdoc * n_splits * 2, n_splits);
   __syncthreads();
   int32_t counter = 0;  // thread 0's: only thread 0 integrates
   int32_t n_valid = 0, n_dels = 0;  // this thread's share of the counters
@@ -302,7 +349,7 @@ __global__ void batch_step_levels_kernel(
     delete_row(d, dr[j]);
     n_dels += dr[j] >= 0;
   }
-  if (!kShared && progress != nullptr) {  // uniform over the block
+  if (!kShared && sh.progress != nullptr) {  // uniform over the block
     __shared__ int32_t red[2];
     if (tid == 0) red[0] = red[1] = 0;
     __syncthreads();
@@ -315,8 +362,8 @@ __global__ void batch_step_levels_kernel(
     }
     __syncthreads();
     if (tid == 0) {
-      atomicAdd(&progress[0], red[0]);
-      atomicAdd(&progress[1], red[1]);
+      atomicAdd(&sh.progress[0], red[0]);
+      atomicAdd(&sh.progress[1], red[1]);
     }
   }
 }
@@ -355,60 +402,60 @@ extern "C" int ytpu_batch_step(const void* key, const void* oslot,
   return (int)cudaGetLastError();
 }
 
-namespace {
-
-template <bool kShared>
-int launch_levels(const void* key, const void* oslot, const void* oclock,
-                  const void* rslot, const void* rclock, const void* orow,
-                  void* rl, void* dl, void* starts, void* visit, void* fast,
-                  const void* splits, const void* lv, const void* dels,
-                  const void* scratch_base, int b, int n1, int s1,
-                  int n_splits, int n_lv, int w, int n_del, int fast_w,
-                  int epoch_max, void* progress, void* stream) {
-  if (b <= 0) return (int)cudaSuccess;
-  int threads = ((w + 31) / 32) * 32;
-  if (threads < 32) threads = 32;
-  if (threads > 256) threads = 256;
-  batch_step_levels_kernel<kShared><<<b, threads, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
-      make_statics(key, oslot, oclock, rslot, rclock, orow),
-      static_cast<int32_t*>(rl), static_cast<uint8_t*>(dl),
-      static_cast<int32_t*>(starts), static_cast<int32_t*>(visit),
-      static_cast<uint8_t*>(fast), static_cast<const int32_t*>(splits),
-      static_cast<const int32_t*>(lv), static_cast<const int32_t*>(dels),
-      static_cast<const int32_t*>(scratch_base), n1, s1, n_splits, n_lv, w,
-      n_del, fast_w, epoch_max, static_cast<int32_t*>(progress));
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// progress: the shard's zeroed [2] int32 counter (K15), or null (K6
-// alone).
-extern "C" int ytpu_batch_step_levels(
-    const void* key, const void* oslot, const void* oclock, const void* rslot,
-    const void* rclock, const void* orow, void* rl, void* dl, void* starts,
-    void* visit, void* fast, const void* splits, const void* lv,
-    const void* dels, const void* scratch_base, int b, int n1, int s1,
-    int n_splits, int n_lv, int w, int n_del, int fast_w, int epoch_max,
-    void* progress, void* stream) {
-  return launch_levels<false>(key, oslot, oclock, rslot, rclock, orow, rl, dl,
-                              starts, visit, fast, splits, lv, dels,
-                              scratch_base, b, n1, s1, n_splits, n_lv, w,
-                              n_del, fast_w, epoch_max, progress, stream);
-}
-
-// The K7b entry: statics are [N+1] columns, splits [S, 2], lv [L, W, 8],
-// dels [D], all shared by the b docs.
-extern "C" int ytpu_batch_step_levels_shared(
-    const void* key, const void* oslot, const void* oclock, const void* rslot,
-    const void* rclock, const void* orow, void* rl, void* dl, void* starts,
-    void* visit, void* fast, const void* splits, const void* lv,
-    const void* dels, const void* scratch_base, int b, int n1, int s1,
+// desc: n_shards rows of kLevelRow int64: the data_ptr of the six static
+// columns (key, oslot, oclock, rslot, rclock, orow), rl, dl, starts,
+// visit, fast, splits, lv, dels, scratch_base and progress (0 for none),
+// then the shard's doc count; every shard on the current device.  The
+// dims are the same for every shard.  shared: K7b's instantiation (the
+// statics, splits, lv and dels of one doc, read by all; no progress).
+// One launch per kMaxShards shards with docs.
+extern "C" int ytpu_batch_step_levels_sharded(
+    const long long* desc, int n_shards, int shared, int n1, int s1,
     int n_splits, int n_lv, int w, int n_del, int fast_w, int epoch_max,
     void* stream) {
-  return launch_levels<true>(key, oslot, oclock, rslot, rclock, orow, rl, dl,
-                             starts, visit, fast, splits, lv, dels,
-                             scratch_base, b, n1, s1, n_splits, n_lv, w,
-                             n_del, fast_w, epoch_max, nullptr, stream);
+  constexpr int kLevelRow = 17;
+  if (n_shards < 0) return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  int threads = ((w + 31) / 32) * 32;
+  if (threads < 32) threads = 32;
+  if (threads > kLevelThreads) threads = kLevelThreads;
+  for (int base = 0; base < n_shards; base += kMaxShards) {
+    const int n = n_shards - base < kMaxShards ? n_shards - base : kMaxShards;
+    LevelShards p;
+    long long max_b = 0;
+    for (int k = 0; k < kMaxShards; ++k) {
+      const long long* r = desc + kLevelRow * (base + (k < n ? k : 0));
+      LevelShard& sh = p.s[k];
+      sh.s = make_statics(reinterpret_cast<const void*>(r[0]),
+                          reinterpret_cast<const void*>(r[1]),
+                          reinterpret_cast<const void*>(r[2]),
+                          reinterpret_cast<const void*>(r[3]),
+                          reinterpret_cast<const void*>(r[4]),
+                          reinterpret_cast<const void*>(r[5]));
+      sh.rl = reinterpret_cast<int32_t*>(r[6]);
+      sh.dl = reinterpret_cast<uint8_t*>(r[7]);
+      sh.starts = reinterpret_cast<int32_t*>(r[8]);
+      sh.visit = reinterpret_cast<int32_t*>(r[9]);
+      sh.fast = reinterpret_cast<uint8_t*>(r[10]);
+      sh.splits = reinterpret_cast<const int32_t*>(r[11]);
+      sh.lv = reinterpret_cast<const int32_t*>(r[12]);
+      sh.dels = reinterpret_cast<const int32_t*>(r[13]);
+      sh.scratch_base = reinterpret_cast<const int32_t*>(r[14]);
+      sh.progress = reinterpret_cast<int32_t*>(r[15]);
+      sh.b = k < n ? r[16] : 0;
+      if (sh.b > max_b) max_b = sh.b;
+    }
+    if (max_b <= 0) continue;
+    const dim3 grid((unsigned)max_b, (unsigned)n);
+    if (shared) {
+      batch_step_levels_kernel<true><<<grid, threads, 0, st>>>(
+          p, n1, s1, n_splits, n_lv, w, n_del, fast_w, epoch_max);
+    } else {
+      batch_step_levels_kernel<false><<<grid, threads, 0, st>>>(
+          p, n1, s1, n_splits, n_lv, w, n_del, fast_w, epoch_max);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }

@@ -52,18 +52,15 @@ _int = ctypes.c_int
 _i64 = ctypes.c_int64
 # C entry points: name -> (library, argtypes)
 _ENTRIES = {
-    "ytpu_apply_lanes_i32": ("apply_lanes", [_vp] * 5 + [_int] * 7 + [_vp] * 2),
-    "ytpu_apply_lanes_i16": ("apply_lanes", [_vp] * 5 + [_int] * 7 + [_vp] * 2),
+    "ytpu_apply_lanes_sharded_i32": ("apply_lanes", [_vp] + [_int] * 7 + [_vp]),
+    "ytpu_apply_lanes_sharded_i16": ("apply_lanes", [_vp] + [_int] * 7 + [_vp]),
     "ytpu_scatter_rows": ("scatter_rows", [_vp] * 7 + [_int] * 4 + [_vp]),
     "ytpu_list_ranks": ("list_ranks", [_vp] * 4 + [_int] * 3 + [_vp]),
     "ytpu_state_vector": ("state_vector", [_vp] * 3 + [_int] * 3 + [_vp]),
     "ytpu_diff_mask": ("diff_mask", [_vp] * 6 + [_int] * 3 + [_vp]),
     "ytpu_scatter_statics": ("statics", [_vp] * 7 + [_int] * 3 + [_vp]),
     "ytpu_batch_step": ("yata", [_vp] * 13 + [_int] * 7 + [_vp]),
-    "ytpu_batch_step_levels": ("yata", [_vp] * 15 + [_int] * 9 + [_vp] * 2),
-    "ytpu_batch_step_levels_shared": (
-        "yata", [_vp] * 15 + [_int] * 9 + [_vp]
-    ),
+    "ytpu_batch_step_levels_sharded": ("yata", [_vp] + [_int] * 10 + [_vp]),
     "ytpu_apply_plan_shared": ("apply_lanes", [_vp] * 4 + [_int] * 6 + [_vp]),
     "ytpu_conflict_scan": ("conflict_scan", [_vp] * 12 + [_i64, _vp]),
     "ytpu_anchor_lookup_sharded": ("anchor_lookup", [_vp, _int, _i64, _vp]),
@@ -73,6 +70,12 @@ _ENTRIES = {
 FOLD_MAX_PARTS = 64
 # the most shards one anchor-lookup launch takes (kMaxShards in the source)
 LOOKUP_MAX_SHARDS = 64
+# the most shards one apply-lanes launch sequence or levels launch takes
+# (kMaxShards in apply_lanes.cu and yata.cu), and the ints of a shard's
+# row in their descriptors
+MESH_MAX_SHARDS = 16
+APPLY_ROW = 7
+LEVELS_ROW = 17
 # the least haystack length the anchor lookup stages in shared memory,
 # and the keys of that sample (kSample in the source)
 LOOKUP_STAGE_MIN = 1 << 13
@@ -209,16 +212,25 @@ def _opt(t):
     return None if t is None else t.data_ptr()
 
 
-def apply_lanes(lanes, cum, right, deleted, starts, b, n1, s1,
-                k_dn, k_sp, k_h, k_d, counter=None) -> None:
-    """``counter``: a shard's zeroed ``[2]`` int32 progress counter, or
-    None."""
-    entry = (
-        "ytpu_apply_lanes_i16" if lanes.dtype == torch.int16
-        else "ytpu_apply_lanes_i32"
-    )
-    _call(entry, lanes.device, _p(lanes), _p(cum), _p(right), _p(deleted),
-          _p(starts), b, n1, s1, k_dn, k_sp, k_h, k_d, _opt(counter))
+def rounds(n_shards: int, per: int = MESH_MAX_SHARDS) -> int:
+    """The launches (or launch sequences) of ``n_shards`` shards with
+    work, ``per`` a round."""
+    return -(-n_shards // per)
+
+
+def apply_lanes(desc: list, device: torch.device, wide: bool, n1, s1,
+                k_dn, k_sp, k_h, k_d) -> int:
+    """Every shard of ``desc`` (flat rows of :data:`APPLY_ROW` ints: the
+    ``data_ptr`` of lanes, cum, right, deleted, starts and counter, 0 for
+    none, then the doc count; all on ``device``) scattered by one launch
+    sequence per :data:`MESH_MAX_SHARDS` shards; ``wide``: int32 lanes,
+    else int16.  Returns the launch sequences."""
+    n = len(desc) // APPLY_ROW
+    rows = array.array("q", desc)  # read by the entry before it returns
+    _call("ytpu_apply_lanes_sharded_i32" if wide
+          else "ytpu_apply_lanes_sharded_i16", device, rows.buffer_info()[0],
+          n, n1, s1, k_dn, k_sp, k_h, k_d)
+    return rounds(n)
 
 
 def scatter_rows(idx, new_right, new_deleted, new_starts, right, deleted,
@@ -262,22 +274,19 @@ def batch_step(cols, dyn, visit, splits, sched, dels, epoch_max) -> None:
           splits.shape[1], sched.shape[1], dels.shape[1], epoch_max)
 
 
-def batch_step_levels(cols, dyn, visit, fast, splits, lv, dels,
-                      scratch_base, epoch_max, shared: bool = False,
-                      counter=None) -> None:
-    """``shared``: K7b — ``cols`` are ``[N+1]``, ``splits [S, 2]``, ``lv
-    [L, W, 8]`` and ``dels [D]``, read by every doc.  ``counter``: a
-    shard's zeroed ``[2]`` int32 progress counter (K6 only), or None."""
-    right, _deleted, starts = dyn
-    b, n1 = right.shape
-    ax = 0 if shared else 1  # the schedules' first non-doc axis
-    entry = "ytpu_batch_step_levels_shared" if shared else "ytpu_batch_step_levels"
-    progress = () if shared else (_opt(counter),)
-    _call(entry, right.device,
-          *_yata_tables(cols, dyn, visit), _p(fast), _p(splits), _p(lv),
-          _p(dels), _p(scratch_base), b, n1, starts.shape[1],
-          splits.shape[ax], lv.shape[ax], lv.shape[ax + 1], dels.shape[ax],
-          fast.shape[1], epoch_max, *progress)
+def batch_step_levels(desc: list, device: torch.device, dims,
+                      epoch_max: int, shared: bool = False) -> int:
+    """Every shard of ``desc`` (flat rows of :data:`LEVELS_ROW` ints, all
+    on ``device``; see ``ytpu_batch_step_levels_sharded``) stepped by one
+    launch per :data:`MESH_MAX_SHARDS` shards.  ``dims``: ``n1, s1,
+    n_splits, n_lv, w, n_del, fast_w``, every shard's.  ``shared``: K7b,
+    whose statics, splits, lv and dels are one doc's, read by all.
+    Returns the launches."""
+    n = len(desc) // LEVELS_ROW
+    rows = array.array("q", desc)  # read by the entry before it returns
+    _call("ytpu_batch_step_levels_sharded", device, rows.buffer_info()[0], n,
+          int(shared), *dims, epoch_max)
+    return rounds(n)
 
 
 def apply_plan_shared(lanes, right, deleted, starts, k_l, k_h, k_d) -> None:
@@ -305,7 +314,7 @@ def anchor_lookup(desc: list, device: torch.device,
     rows = array.array("q", desc)  # read by the entry before it returns
     _call("ytpu_anchor_lookup_sharded", device, rows.buffer_info()[0], n,
           stage_min)
-    return -(-n // LOOKUP_MAX_SHARDS)
+    return rounds(n, LOOKUP_MAX_SHARDS)
 
 
 def shard_fold(ptrs: list, n: int, op: int, out) -> int:

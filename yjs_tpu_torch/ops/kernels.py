@@ -62,15 +62,19 @@ length, copies them to ``device`` (the CUDA device unless told
 otherwise), runs the wrapper and copies back.
 
 The doc mesh (:mod:`yjs_tpu_torch.parallel`) runs these kernels per
-shard.  Two wrappers here serve it:
+shard.  Four wrappers here serve it, each with one launch (or launch
+sequence) for all the shards of a device:
 
+- :func:`sharded_apply_lanes` (K14) and :func:`sharded_batch_step_levels`
+  (K15) run the bulk apply and the level step on every shard's tables,
+  counting each shard's progress into its ``[2]`` int32 counter;
+  :func:`apply_lanes` and :func:`batch_step_levels` are their one-shard
+  calls;
 - :func:`shard_fold` folds equal per-shard int32 partials by SUM or
-  MAX (the reference's ``psum`` of the sharded steps' progress counters,
-  which :func:`apply_lanes` and :func:`batch_step_levels` count into a
-  shard's ``counter``, and ``pmax`` over a ``rows`` axis);
+  MAX (the reference's ``psum`` of those counters, and ``pmax`` over a
+  ``rows`` axis);
 - :func:`sharded_anchor_lookup` runs the anchor lookup on each shard's
-  query block, one launch for all the shards of a device (the chunk
-  planner's sharded lookup).
+  query block (the chunk planner's sharded lookup).
 
 A kernel that cannot be built, loaded or launched, or a CUDA device
 asked for on a host without one, raises :class:`KernelError`.
@@ -179,6 +183,8 @@ def apply_lanes_plain(dyn, lanes, k_dn, k_sp, k_h, k_d, counter=None):
     right_link, deleted, starts = dyn
     lanes = lanes.to(torch.int32)
     b = right_link.shape[0]
+    if not b:  # no docs: every lane is dropped
+        return right_link, deleted, starts
     if counter is not None:
         _add_progress(counter, lanes[: 2 * b].sum(),
                       lanes[3 * b : 4 * b].sum())
@@ -215,33 +221,107 @@ def apply_lanes(dyn, lanes, k_dn, k_sp, k_h, k_d, counter=None):
       [r|v]*k_sp        sparse link writes at explicit rows
       [s|v]*k_h         segment-head writes
       [r]*k_d           delete marks
-    Out-of-bounds targets (padding) are dropped.  ``counter`` (a shard of
-    the doc mesh, K14): a ``[2]`` int32 tensor that gains the dense plus
-    sparse counts' sum and the delete counts' sum.  Returns ``dyn``."""
+    Out-of-bounds targets (padding) are dropped.  ``counter``: a ``[2]``
+    int32 tensor that gains the dense plus sparse counts' sum and the
+    delete counts' sum.  On CUDA it is the one-shard launch sequence of
+    :func:`sharded_apply_lanes`' kernels.  Returns ``dyn``."""
     right_link, deleted, starts = dyn
     ins = (right_link, deleted, starts, lanes)
     if not _on_cuda(*ins, *(() if counter is None else (counter,))):
         return apply_lanes_plain(dyn, lanes, k_dn, k_sp, k_h, k_d, counter)
-    _check(right_link, "right_link", (torch.int32,), 2)
-    _check(deleted, "deleted", (torch.bool,), 2)
-    _check(starts, "starts", (torch.int32,), 2)
-    _check(lanes, "lanes", (torch.int16, torch.int32), 1)
-    b, n1 = right_link.shape
-    if deleted.shape != right_link.shape or starts.shape[0] != b:
-        raise ValueError("table shapes disagree")
-    if lanes.shape[0] != 4 * b + k_dn + 2 * k_sp + 2 * k_h + k_d:
-        raise ValueError("lanes length does not match the section widths")
-    if counter is not None:
-        _check(counter, "counter", (torch.int32,), 1)
-        if counter.shape[0] != 2:
-            raise ValueError("counter must be [2]")
-    cum = torch.empty(4 * b, dtype=torch.int32, device=lanes.device)
-    _cuda.apply_lanes(
-        lanes, cum, right_link, deleted, starts, b, n1, starts.shape[1],
-        k_dn, k_sp, k_h, k_d, counter,
-    )
-    launches["apply_lanes"] += 1
+    dev = lanes.device
+    desc, dims, _cum = _apply_desc(dev, (0,), [dyn], [lanes], [counter],
+                                   (k_dn, k_sp, k_h, k_d))
+    if desc:
+        launches["apply_lanes"] += _cuda.apply_lanes(
+            desc, dev, *dims, k_dn, k_sp, k_h, k_d)
     return right_link, deleted, starts
+
+
+def _check_on(s, dev, named, dtypes) -> None:
+    """Shard ``s``'s ``(name, tensor)`` pairs (None skipped) lie on
+    ``dev``, contiguous, of one of ``dtypes``; raises ``ValueError`` (or
+    ``TypeError`` for a dtype) naming the shard and the tensor."""
+    for name, t in named:
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"shard {s}: {name} on {t.device}, the launch "
+                             f"on {dev}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"shard {s}: {name}: dtype {t.dtype} not in "
+                            f"{dtypes}")
+        if not t.is_contiguous():
+            raise ValueError(f"shard {s}: {name} must be contiguous")
+
+
+_I32 = (torch.int32,)
+
+
+def _apply_shard(s, dev, dyn, row, counter, lane_w):
+    """Check shard ``s`` of a K1/K14 call once: int32 tables and a bool
+    ``deleted`` of one ``[B, N+1]`` shape, int16 or int32 lanes of ``4 *
+    B + lane_w``, a ``[2]`` int32 counter or None, all contiguous on
+    ``dev``.  Returns ``(b, (wide, n1, s1))``."""
+    right, deleted, starts = dyn
+    _check_on(s, dev, (("right_link", right), ("starts", starts),
+                       ("counter", counter)), _I32)
+    _check_on(s, dev, (("deleted", deleted),), (torch.bool,))
+    _check_on(s, dev, (("lanes", row),), (torch.int16, torch.int32))
+    shape, ss = right.shape, starts.shape
+    if len(shape) != 2 or deleted.shape != shape:
+        raise ValueError(f"shard {s}: right_link and deleted must be one "
+                         "[B, N+1]")
+    b = shape[0]
+    if len(ss) != 2 or ss[0] != b:
+        raise ValueError(f"shard {s}: starts must be [B, S+1]")
+    if row.shape != (4 * b + lane_w,):
+        raise ValueError(f"shard {s}: lanes length does not match the "
+                         "section widths")
+    if counter is not None and counter.shape != (2,):
+        raise ValueError(f"shard {s}: counter must be [2]")
+    return b, (row.dtype == torch.int32, shape[1], ss[1])
+
+
+def _apply_desc(dev, shards, dyn, lanes, counters, widths):
+    """The K1/K14 launch descriptor for ``shards`` (indices into the
+    per-shard lists ``dyn``, ``lanes`` and ``counters``; None for no
+    counter), every tensor on ``dev``: each shard's tables, lanes row and
+    counter checked once, one int32 cum scratch for the device (``4 * b``
+    a shard) and :data:`_cuda.APPLY_ROW` ints a shard with docs, in shard
+    order — the ``data_ptr`` of its lanes, cum slice, right, deleted,
+    starts and counter (0 for none), then its doc count ``b``.  A shard
+    whose N+1, S+1 or lanes dtype differs from the first's, or whose
+    tensors lie on another device, raises ``ValueError``.  Returns
+    ``(desc, (wide, n1, s1), cum)``; keep ``cum`` until the launch is
+    enqueued."""
+    k_dn, k_sp, k_h, k_d = widths
+    lane_w = k_dn + 2 * k_sp + 2 * k_h + k_d
+    first = None
+    live = []
+    total = 0
+    for s in shards:
+        b, dims = _apply_shard(s, dev, dyn[s], lanes[s], counters[s], lane_w)
+        if first is None:
+            first = dims
+        elif dims != first:
+            raise ValueError(
+                f"shard {s}: (int32 lanes, N+1, S+1) {dims} differ from "
+                f"shard {shards[0]}'s {first}")
+        if b:
+            live.append((s, b))
+            total += 4 * b
+    cum = torch.empty(total, dtype=torch.int32, device=dev)
+    ptr = cum.data_ptr()
+    desc = []
+    for s, b in live:
+        right, deleted, starts = dyn[s]
+        counter = counters[s]
+        desc += (lanes[s].data_ptr(), ptr, right.data_ptr(),
+                 deleted.data_ptr(), starts.data_ptr(),
+                 0 if counter is None else counter.data_ptr(), b)
+        ptr += 16 * b
+    return desc, first, cum
 
 
 @profiled("apply_plan2")
@@ -848,33 +928,120 @@ def batch_step_levels(statics, dyn, splits, lv_sched, delete_rows,
     integrate in ascending lane order; then the deletes.
 
     ``scratch_base [B]`` is each doc's row count: the engine keeps 2W
-    spare rows past it.  ``counter`` (a shard of the doc mesh, K15): a
-    ``[2]`` int32 tensor that gains the count of schedule lanes with a
-    row (``lv_sched[..., 0] >= 0``) and of delete rows (``>= 0``).
-    Returns ``dyn``."""
+    spare rows past it.  ``counter``: a ``[2]`` int32 tensor that gains
+    the count of schedule lanes with a row (``lv_sched[..., 0] >= 0``)
+    and of delete rows (``>= 0``).  On CUDA it is the one-shard launch of
+    :func:`sharded_batch_step_levels`' kernel.  Returns ``dyn``."""
     args = (splits, lv_sched, delete_rows, scratch_base)
     extra = () if counter is None else (counter,)
     if not _on_cuda(*_yata_inputs(statics, dyn, *args), *extra):
         return batch_step_levels_plain(statics, dyn, *args, counter=counter)
-    _check_yata(statics, dyn, splits, lv_sched, delete_rows, scratch_base)
-    _check_step_shapes(splits, lv_sched, (0, 0, 8), delete_rows)
-    right = dyn[0]
-    b = right.shape[0]
-    if scratch_base.dim() != 1:
-        raise ValueError("scratch_base must be [B]")
-    if counter is not None:
-        _check(counter, "counter", (torch.int32,), 1)
-        if counter.shape[0] != 2:
-            raise ValueError("counter must be [2]")
-    if b:
-        visit = torch.full_like(right, NULL)
-        fast = torch.empty((b, max(1, lv_sched.shape[2])), dtype=torch.uint8,
-                           device=right.device)
-        _cuda.batch_step_levels([statics[k] for k in STATIC_KEYS], dyn,
-                                visit, fast, splits, lv_sched, delete_rows,
-                                scratch_base, EPOCH_MAX, counter=counter)
-        launches["batch_step_levels"] += 1
+    dev = dyn[0].device
+    desc, dims, _scratch = _levels_desc(
+        dev, (0,), [statics], [dyn], *([a] for a in args), [counter])
+    if desc:
+        launches["batch_step_levels"] += _cuda.batch_step_levels(
+            desc, dev, dims, EPOCH_MAX)
     return dyn
+
+
+_LEVEL_DIMS = ("N+1", "S+1", "splits", "levels", "W", "deletes")
+
+
+def _levels_row(cols, dyn, visit: int, fast: int, sched, counter: int,
+                b: int) -> list:
+    """One shard's :data:`_cuda.LEVELS_ROW` ints of the K6 descriptor:
+    the ``data_ptr`` of the six static columns, right, deleted, starts,
+    the visit and fast scratch rows (pointers given), splits, lv, dels,
+    scratch_base and the counter (0 for none), then the doc count."""
+    return [*(c.data_ptr() for c in cols), *(t.data_ptr() for t in dyn),
+            visit, fast, *(t.data_ptr() for t in sched), counter, b]
+
+
+_SCHED_NAMES = ("splits", "lv_sched", "delete_rows", "scratch_base")
+
+
+def _levels_shard(s, dev, cols, dyn, sched, counter):
+    """Check shard ``s`` of a K6/K15 call once: the six statics, right
+    and starts int32 and ``deleted`` bool, the statics and ``deleted`` of
+    right's ``[B, N+1]``, starts ``[B, S+1]``, splits ``[B, S', 2]``,
+    lv_sched ``[B, L, W, 8]``, delete_rows ``[B, D]`` and scratch_base
+    ``[B]`` int32, a ``[2]`` int32 counter or None, all contiguous on
+    ``dev``.  Returns ``(b, (n1, s1, n_splits, n_lv, w, n_del))``."""
+    right, deleted, starts = dyn
+    sp, lvs, dl, sb = sched
+    _check_on(s, dev, (*zip(STATIC_KEYS, cols), ("right_link", right),
+                       ("starts", starts), *zip(_SCHED_NAMES, sched),
+                       ("counter", counter)), _I32)
+    _check_on(s, dev, (("deleted", deleted),), (torch.bool,))
+    shape = right.shape
+    if len(shape) != 2 or deleted.shape != shape:
+        raise ValueError(f"shard {s}: right_link and deleted must be one "
+                         "[B, N+1]")
+    for key, c in zip(STATIC_KEYS, cols):
+        if c.shape != shape:
+            raise ValueError(f"shard {s}: static column {key} does not "
+                             "match right_link")
+    b = shape[0]
+    ss, ps, ls, ds = starts.shape, sp.shape, lvs.shape, dl.shape
+    for ok, want in ((len(ss) == 2 and ss[0] == b, "starts [B, S+1]"),
+                     (len(ps) == 3 and ps[0] == b and ps[2] == 2,
+                      "splits [B, S, 2]"),
+                     (len(ls) == 4 and ls[0] == b and ls[3] == 8,
+                      "lv_sched [B, L, W, 8]"),
+                     (len(ds) == 2 and ds[0] == b, "delete_rows [B, D]"),
+                     (sb.shape == (b,), "scratch_base [B]"),
+                     (counter is None or counter.shape == (2,),
+                      "counter [2]")):
+        if not ok:
+            raise ValueError(f"shard {s}: expected {want}")
+    return b, (shape[1], ss[1], ps[1], ls[1], ls[2], ds[1])
+
+
+def _levels_desc(dev, shards, statics, dyn, splits, lv, dels, scratch,
+                 counters):
+    """The K6/K15 launch descriptor for ``shards`` (indices into the
+    per-shard lists: statics dicts, ``(right, deleted, starts)`` tables,
+    schedules and counters, None for no counter), every tensor on
+    ``dev``: each shard's tensors checked once, one visit scratch ``[sum
+    b, N+1]`` int32 filled with -1 and one fast-flag scratch ``[sum b,
+    max(1, W)]`` uint8 for the device, and :func:`_levels_row` a shard with
+    docs, in shard order, pointing at its rows of both.  A shard whose
+    N+1, S+1, split, level, lane or delete width differs from the
+    first's, or whose tensors lie on another device, raises
+    ``ValueError``.  Returns ``(desc, dims, (visit, fast))``: ``dims`` is
+    ``_cuda.batch_step_levels``' (``n1, s1, n_splits, n_lv, w, n_del,
+    fast_w``); keep the scratch until the launch is enqueued."""
+    first = None
+    live = []
+    total = 0
+    for s in shards:
+        cols = [statics[s][k] for k in STATIC_KEYS]
+        sched = (splits[s], lv[s], dels[s], scratch[s])
+        counter = counters[s]
+        b, dims = _levels_shard(s, dev, cols, dyn[s], sched, counter)
+        if first is None:
+            first = dims
+        elif dims != first:
+            bad = [f"{n} {a} (shard {shards[0]}: {v})" for n, a, v in
+                   zip(_LEVEL_DIMS, dims, first) if a != v]
+            raise ValueError(f"shard {s}: " + ", ".join(bad))
+        if b:
+            live.append((s, b, cols, sched, counter))
+            total += b
+    if first is None:
+        return [], None, None
+    n1, fast_w = first[0], max(1, first[4])
+    visit = torch.full((total, n1), NULL, dtype=torch.int32, device=dev)
+    fast = torch.empty((total, fast_w), dtype=torch.uint8, device=dev)
+    vp, fp = visit.data_ptr(), fast.data_ptr()
+    desc = []
+    for s, b, cols, sched, counter in live:
+        desc += _levels_row(cols, dyn[s], vp, fp, sched,
+                            0 if counter is None else counter.data_ptr(), b)
+        vp += 4 * n1 * b
+        fp += fast_w * b
+    return desc, (*first, fast_w), (visit, fast)
 
 
 # ---------------------------------------------------------------------------
@@ -987,13 +1154,16 @@ def batch_step_levels_shared(statics, dyn, splits, lv_sched, delete_rows,
     if scratch_base.shape[0] != b:
         raise ValueError("scratch_base must be [B]")
     if b:
+        dev = right.device
         visit = torch.full_like(right, NULL)
-        fast = torch.empty((b, max(1, lv_sched.shape[1])), dtype=torch.uint8,
-                           device=right.device)
-        _cuda.batch_step_levels(cols, dyn, visit, fast, splits, lv_sched,
-                                delete_rows, scratch_base, EPOCH_MAX,
-                                shared=True)
-        launches["batch_step_levels_shared"] += 1
+        fast_w = max(1, lv_sched.shape[1])
+        fast = torch.empty((b, fast_w), dtype=torch.uint8, device=dev)
+        row = _levels_row(cols, dyn, visit.data_ptr(), fast.data_ptr(),
+                          args, 0, b)
+        dims = (n1, starts.shape[1], splits.shape[0], lv_sched.shape[0],
+                lv_sched.shape[1], delete_rows.shape[0], fast_w)
+        launches["batch_step_levels_shared"] += _cuda.batch_step_levels(
+            row, dev, dims, EPOCH_MAX, shared=True)
     return dyn
 
 
@@ -1147,6 +1317,68 @@ def _device_groups(devices) -> dict:
     return groups
 
 
+def _shard_devices(dyn):
+    """The ``{device: [shard, ...]}`` groups of a mesh's tables."""
+    return _device_groups([t[0].device for t in dyn])
+
+
+def _unsupported(dev) -> ValueError:
+    return ValueError(f"unsupported device {dev}")
+
+
+def sharded_apply_lanes(dyn, lanes, widths, counters):
+    """K14, the bulk apply of the doc mesh, in place: shard ``s`` scatters
+    its lanes row ``lanes[s]`` into its tables ``dyn[s]``, as
+    :func:`apply_lanes` does, counting into ``counters[s]`` (a ``[2]``
+    int32 row, or None).  ``widths`` (``k_dn, k_sp, k_h, k_d``) are every
+    shard's.  The shards of one CUDA device share one cum scratch and one
+    launch sequence (a round per :data:`_cuda.MESH_MAX_SHARDS` shards with
+    docs, counted in ``launches["sharded_apply_plan"]``); shards on the
+    CPU take the plain version.  Returns ``dyn``."""
+    for dev, shards in _shard_devices(dyn).items():
+        if dev.type == "cuda":
+            desc, dims, _cum = _apply_desc(dev, shards, dyn, lanes, counters,
+                                           widths)
+            if desc:
+                launches["sharded_apply_plan"] += _cuda.apply_lanes(
+                    desc, dev, *dims, *widths)
+        elif dev.type == "cpu":
+            for s in shards:
+                apply_lanes_plain(dyn[s], lanes[s], *widths,
+                                  counter=counters[s])
+        else:
+            raise _unsupported(dev)
+    return dyn
+
+
+def sharded_batch_step_levels(statics, dyn, splits, lv, dels, scratch,
+                              counters):
+    """K15, the level-parallel YATA step of the doc mesh, in place: shard
+    ``s`` runs :func:`batch_step_levels` on its statics dict, tables and
+    schedule blocks (``splits[s]``, ``lv[s]``, ``dels[s]``,
+    ``scratch[s]``), counting into ``counters[s]`` (a ``[2]`` int32 row, or
+    None).  The shards of one CUDA device share one visit and one fast
+    scratch and one launch (a round per :data:`_cuda.MESH_MAX_SHARDS`
+    shards with docs, counted in ``launches["sharded_batch_step"]``);
+    shards on the CPU take the plain version.  Returns ``dyn``."""
+    for dev, shards in _shard_devices(dyn).items():
+        if dev.type == "cuda":
+            desc, dims, _scratch = _levels_desc(
+                dev, shards, statics, dyn, splits, lv, dels, scratch,
+                counters)
+            if desc:
+                launches["sharded_batch_step"] += _cuda.batch_step_levels(
+                    desc, dev, dims, EPOCH_MAX)
+        elif dev.type == "cpu":
+            for s in shards:
+                batch_step_levels_plain(statics[s], dyn[s], splits[s], lv[s],
+                                        dels[s], scratch[s],
+                                        counter=counters[s])
+        else:
+            raise _unsupported(dev)
+    return dyn
+
+
 def _same_device(s: int, hay, dev) -> None:
     if hay.device != dev:
         raise ValueError(f"shard {s}: haystack on {hay.device}, queries on "
@@ -1198,7 +1430,7 @@ def sharded_anchor_lookup(hays, q_blocks):
                 _same_device(s, hays[s], dev)
                 out[s] = anchor_lookup_plain(hays[s], q_blocks[s])
         else:
-            raise ValueError(f"unsupported device {dev}")
+            raise _unsupported(dev)
     return out
 
 

@@ -10,11 +10,11 @@ shards (its ``pmax``); both are :func:`..ops.kernels.shard_fold`.
 
 The reference's mesh is single-controller: one process drives every
 device through ``shard_map``.  So is this one.  A :class:`DocMesh` is an
-array of torch devices with named axes, and one process launches each
-shard's kernels in turn, on its device's current stream.  Shards may
-share a device: the CPU tests run eight shards on the CPU, as the
-reference's tests run eight virtual host devices, and one card can hold
-four.  Distinct GPUs are the same code with a device per shard.
+array of torch devices with named axes, and one process launches the
+shards' kernels, device by device, on each device's current stream.
+Shards may share a device: the CPU tests run eight shards on the CPU, as
+the reference's tests run eight virtual host devices, and one card can
+hold four.  Distinct GPUs are the same code with a device per shard.
 
 Axes:
 
@@ -25,9 +25,12 @@ Axes:
   row shards), the long-document analogue of sequence parallelism.
 
 Each ``sharded_*`` factory returns a callable, wrapped by ``profiled``
-under the reference's name, that launches one kernel a shard (and counts
-it in ``kernels.launches``); with ``plain=True`` it runs the kernels'
-plain PyTorch versions instead, on whatever device the tensors lie.
+under the reference's name.  The apply (K14) and level (K15) steps make
+one launch (or launch sequence) a device for all its shards, whose
+tensors travel to the kernel by value; the state vectors (K16) one a
+shard.  Each counts its launches in ``kernels.launches``.  With
+``plain=True`` the callable runs the kernels' plain PyTorch versions
+instead, on whatever device the tensors lie.
 """
 
 from __future__ import annotations
@@ -232,18 +235,17 @@ def sharded_batch_step(mesh: DocMesh, axis: str = "docs",
     """The level-parallel YATA step sharded over the doc axis (K15).
 
     Returns ``fn(statics, dyn, splits, lv_sched, delete_rows,
-    scratch_base, counters=None) -> (dyn, counters)``: per shard,
-    :func:`kernels.batch_step_levels` on its statics dict and tables (in
-    place) and its blocks of the ``[B, ...]`` schedules (host arrays,
-    split here, or per-shard tensors), counting into the shard's ``[2]``
-    int32 counter its schedule lanes with a row and its delete rows.
-    ``counters`` from an earlier call carry on (a flush's level blocks
-    add up); None starts from zero.  :func:`fold_metrics` folds them."""
+    scratch_base, counters=None) -> (dyn, counters)``: every shard's
+    statics dict and tables (in place) stepped with its blocks of the
+    ``[B, ...]`` schedules (host arrays, split here, or per-shard
+    tensors), counting into the shard's ``[2]`` int32 counter its
+    schedule lanes with a row and its delete rows; one launch a device
+    (:func:`kernels.sharded_batch_step_levels`).  ``counters`` from an
+    earlier call carry on (a flush's level blocks add up); None starts
+    from zero.  :func:`fold_metrics` folds them."""
     from ..ops import kernels
 
     devices = mesh.axis_devices(axis)
-    step = (kernels.batch_step_levels_plain if plain
-            else kernels.batch_step_levels)
 
     def run(statics, dyn, splits, lv_sched, delete_rows, scratch_base,
             counters=None):
@@ -253,11 +255,14 @@ def sharded_batch_step(mesh: DocMesh, axis: str = "docs",
                   for a in (splits, lv_sched, delete_rows, scratch_base)]
         if counters is None:
             counters = _zero_counters(dyn)
-        for s, tabs in enumerate(dyn):
-            sp, lv, dl, sb = (blk[s] for blk in blocks)
-            step(statics[s], tabs, sp, lv, dl, sb, counter=counters[s])
-            if not plain and tabs[0].is_cuda and tabs[0].shape[0]:
-                kernels.launches["sharded_batch_step"] += 1
+        if plain:
+            for s, tabs in enumerate(dyn):
+                kernels.batch_step_levels_plain(
+                    statics[s], tabs, *(blk[s] for blk in blocks),
+                    counter=counters[s])
+        else:
+            kernels.sharded_batch_step_levels(statics, dyn, *blocks,
+                                              counters)
         return dyn, counters
 
     return run if plain else profiled("sharded_batch_step")(run)
@@ -273,21 +278,23 @@ def sharded_apply_plan(mesh: DocMesh, axis: str, k_dn: int, k_sp: int,
     one row placed on each shard, or the per-shard rows); ``dyn`` holds
     each shard's ``(right, deleted, starts)``.  Each shard's ``[2]`` int32
     counter holds its dense plus sparse counts and its delete counts, the
-    totals of K1's own count scan."""
+    totals of the count scan.  One launch sequence a device
+    (:func:`kernels.sharded_apply_lanes`)."""
     from ..ops import kernels
 
     devices = mesh.axis_devices(axis)
-    apply = kernels.apply_lanes_plain if plain else kernels.apply_lanes
+    widths = (k_dn, k_sp, k_h, k_d)
 
     def run(dyn, lanes):
         dyn = _placed(dyn, devices)
         rows = (list(lanes) if isinstance(lanes, (list, tuple))
                 else [r[0] for r in shard_rows(lanes, devices)])
         counters = _zero_counters(dyn)
-        for tabs, row, c in zip(dyn, rows, counters):
-            apply(tabs, row, k_dn, k_sp, k_h, k_d, counter=c)
-            if not plain and c.is_cuda:
-                kernels.launches["sharded_apply_plan"] += 1
+        if plain:
+            for tabs, row, c in zip(dyn, rows, counters):
+                kernels.apply_lanes_plain(tabs, row, *widths, counter=c)
+        else:
+            kernels.sharded_apply_lanes(dyn, rows, widths, counters)
         return dyn, counters
 
     return run if plain else profiled("sharded_apply_plan")(run)
