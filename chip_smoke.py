@@ -11,8 +11,9 @@ script exits non-zero:
 1. device: the card's name and count, and ``nvidia-smi``'s name and
    power limit;
 2. build: the native plan core (g++) and the ten CUDA sources (one
-   nvcc per source, all at once), with build seconds and each kernel's
-   registers and spills;
+   nvcc per source, all at once), with build seconds, each kernel's
+   registers and spills, and each YATA step instantiation's shared,
+   global and generic loads and stores (``cuobjdump -sass``);
 3. main path: a room server's fleet, ``BatchEngine(n_docs=4096)`` on the
    card beside a CPU twin ``BatchEngine(4096, device="cpu")`` that runs
    the kernels' plain versions on the same bytes:
@@ -111,13 +112,22 @@ script exits non-zero:
    path's largest shapes (exact), with times from CUDA events (``ms``:
    per call, launch gaps included; the YATA steps restore their tables
    before each timed launch and time it alone), device time from
-   ``torch.profiler`` (``device_ms``) and the byte bound, printed as one
+   ``torch.profiler`` (``device_ms``; not for the YATA steps, whose
+   device ms come from ``scripts/torch_yata_ab.py``) and the byte bound,
+   printed as one
    ``{"kernels": [...]}`` line; each row's ``launches`` is its path's
    count (counts are zeroed just before each path and read just after);
    the YATA steps' rows add the longest per-doc chain of dependent loads
-   (``dep_chain``), which limits them (``limited_by``), and the measured
-   time per load; the planner kernels' rows add the pageable host copies
-   around them (``h2d_ms``, ``d2h_ms``); the fold's, K13's and K11's rows
+   (``dep_chain``), which limits them (``limited_by``), the measured
+   time per load, the variant the size picked (``variant``: checked
+   against ``SMOKE_VARIANT``: at 4097 rows a doc's rows stay in global
+   memory, at the broadcast step's ~1400 all but the visit row are staged
+   in shared memory), its staged ``smem_bytes``, ``threads`` a block and
+   ``blocks_per_sm``; K5's and K6's add ``variants``: the first 32 docs
+   of their input in each variant, forced, and widened to N+1 = 16385,
+   each equal to its plain version, with its events ms; the
+   planner kernels' rows add the pageable host copies around them
+   (``h2d_ms``, ``d2h_ms``); the fold's, K13's and K11's rows
    add ``ms_obs_off`` (the same events loop with the kernel profiler off)
    and ``host_us`` (one call's host time by ``time.perf_counter`` over
    1000 calls, split into the profiler, the checks and allocation, the
@@ -165,6 +175,10 @@ N_SAMPLED_CLIENTS = 32
 TIMED_LAUNCHES = 50
 HOST_SPLIT_CALLS = 1000
 YATA_TIMED_LAUNCHES = 20
+# The YATA steps' rows carry no profiler device time: in this long run
+# their traces, of 20 calls or of 10, read a third to two thirds of what
+# scripts/torch_yata_ab.py reads in a fresh process with the same traces,
+# beside events that agree with the latter; their ms are events.
 
 
 def log(*parts) -> None:
@@ -242,6 +256,42 @@ def build_phase() -> None:
         log(f"[build] nvcc {name}.cu {rec['seconds']:.2f}s")
         for line in _cuda.ptxas_summary(rec["ptxas"]):
             log(f"[build]   {line}")
+    for kernel, ops in sass_memory_ops(info["yata"]["path"]).items():
+        log(f"[build]   yata.cu SASS {kernel}: " + ", ".join(
+            f"{op} {n}" for op, n in sorted(ops.items())))
+
+
+def sass_memory_ops(path: str) -> dict:
+    """Per kernel template instance of a built library (``name<args>``,
+    the variant as its index in ``kernels.YATA_VARIANTS``), its shared
+    (LDS, STS), global (LDG, STG) and generic (LD, ST) memory
+    instructions, from ``cuobjdump -sass``; {} where the toolkit has no
+    cuobjdump.  The staged YATA variants' rows are read and written by
+    LDS and STS."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("[build]   cuobjdump not found: SASS not read")
+        return {}
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(
+            r"Function : \S*?\d([a-z][a-z_]*_kernel)I((?:L[bi]\d+E)+)E", line)
+        if m:
+            args = re.sub(r"Lb([01])E", lambda g: ("false", "true")[
+                int(g.group(1))] + ",", m.group(2))
+            args = re.sub(r"Li(\d+)E", r"\1,", args).rstrip(",")
+            cur = out.setdefault(f"{m.group(1)}<{args}>", {})
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", line)
+        if cur is not None and m and m.group(1) in (
+                "LDS", "STS", "LDG", "STG", "LD", "ST"):
+            cur[m.group(1)] = cur.get(m.group(1), 0) + 1
+    return out
 
 
 # -- phase 3 ----------------------------------------------------------------------
@@ -1687,6 +1737,8 @@ def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
     fn = pm.sharded_batch_step(mesh, "docs")
     got, gc = fn(statics, fresh(tables), splits, lv, dels, scratch)
     b_loc, n1 = tables[0][0].shape
+    info = yata_variant_row("sharded_batch_step", n1, tables[0][2].shape[1],
+                            max(1, lv[0].shape[2]), tables[0][0].device)
     stats = [K.new_yata_stats(b_loc, t[0].device) for t in tables]
     ref = fresh(tables)
     rc = [torch.zeros(2, dtype=torch.int32, device=t[0].device)
@@ -1713,7 +1765,6 @@ def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
         fn(statics, work, splits, lv, dels, scratch)
 
     ms = cuda_ms_restored(launch, restore)
-    dev_ms = device_ms(launch, YATA_TIMED_LAUNCHES, restore)
     nbytes = sum(
         yata_bytes("batch_step_levels",
                    (statics[s], tables[s], splits[s], lv[s], dels[s],
@@ -1735,11 +1786,11 @@ def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
         "launches": m_launches["sharded_batch_step"], "max_abs_err": err,
         "devices": n_devices,
         "kernels_a_call": kernels_a_call(launch, restore),
-        "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "ms": ms, "plain_ms": plain_ms,
         "host_us": host_split(lambda: fn(statics, idle, *null, scratch)),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "limited_by": "dep_chain", "dep_chain": chain,
-        "ns_per_dep_load": (dev_ms or ms) * 1e6 / max(1, chain),
+        "ns_per_dep_load": ms * 1e6 / max(1, chain), **info,
     })
 
     # one launch sequence a device, whatever the shards on it: the
@@ -2124,6 +2175,101 @@ def yata_bytes(name: str, args, stats) -> int:
             + n_dels)
 
 
+# the YATA steps' kinds in _cuda.yata_occupancy
+YATA_KINDS = {"batch_step": 0, "batch_step_levels": 1,
+              "sharded_batch_step": 1, "batch_step_levels_shared": 2}
+# the variant each YATA step's main-path input takes on an H100
+# (kernels.yata_variant: the smoke's docs of 4097 rows stage nothing, the
+# broadcast step's docs of about 1400 rows all but the visit row)
+SMOKE_VARIANT = {"batch_step": "global", "batch_step_levels": "global",
+                 "sharded_batch_step": "global",
+                 "batch_step_levels_shared": "rows"}
+# the docs of the variant case, and the rows of its widest docs
+N_VARIANT_DOCS = 32
+WIDE_DOC_N1 = 16385
+
+
+def yata_variant_row(name: str, n1: int, s1: int, w: int, dev,
+                     want: str | None = None) -> dict:
+    """The variant the YATA wrapper ``name`` launched last, for docs of
+    ``n1`` (N+1) rows, ``s1`` (S+1) heads and ``w`` fast-flag bytes (0 for
+    K5): checked against ``kernels.yata_variant`` on this card and against
+    ``want`` (by default :data:`SMOKE_VARIANT`'s), with its staged
+    shared-memory bytes, threads a block and blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    from yjs_tpu_torch.ops import _cuda
+    from yjs_tpu_torch.ops import kernels as K
+
+    want = want or SMOKE_VARIANT[name]
+    variant, smem = K.yata_variant(n1, s1, w, _cuda.smem_optin(dev))
+    check(K.last_variant[name] == variant,
+          f"{name} launched the {K.last_variant[name]} variant, not {variant}")
+    check(variant == want, f"{name} at N+1={n1} S+1={s1} W={w} takes the "
+          f"{variant} variant, not {want}")
+    threads, blocks = _cuda.yata_occupancy(
+        dev, YATA_KINDS[name], K.YATA_VARIANTS.index(variant), smem)
+    return {"variant": variant, "smem_bytes": smem, "threads": threads,
+            "blocks_per_sm": blocks}
+
+
+def variant_rows(name: str, statics: dict, dyn, rest) -> list[dict]:
+    """K5 or K6 (``name``) against its plain version on the first
+    :data:`N_VARIANT_DOCS` docs of its YATA-path input: in each variant,
+    forced (``kernels.yata_variant`` replaced for the call; the path takes
+    the one its size picks), and widened to :data:`WIDE_DOC_N1` rows with
+    the engine's fills (the schedules name rows below the old width) in
+    the variant that size picks.  So every instantiation of the step meets
+    its plain version on the card.  Its launches here are comparisons and
+    count for no path."""
+    from yjs_tpu_torch.ops import kernels as K
+    from yjs_tpu_torch.ops.engine import _STATIC_COLS
+
+    fn, plain = getattr(K, name), getattr(K, f"{name}_plain")
+    b = N_VARIANT_DOCS
+    args = [r[:b].contiguous() for r in rest]
+    w = 0 if name == "batch_step" else max(1, args[1].shape[2])
+    pick = K.yata_variant
+    out = []
+    for n1, forced in [(dyn[0].shape[1], v) for v in K.YATA_VARIANTS] + [
+            (WIDE_DOC_N1, None)]:
+        def wide(t, fill, n1=n1):
+            o = torch.full((b, n1), fill, dtype=t.dtype, device=t.device)
+            o[:, : t.shape[1]] = t[:b]
+            return o
+
+        st = {k: wide(statics[k], fill) for k, fill, _dt in _STATIC_COLS}
+        tabs = (wide(dyn[0], K.NULL), wide(dyn[1], False),
+                dyn[2][:b].clone())
+        work = _clone(tabs)
+
+        def restore(work=work, tabs=tabs):
+            for a, o in zip(work, tabs):
+                a.copy_(o)
+
+        if forced is not None:
+            K.yata_variant = lambda n1, s1, w, limit, v=forced: (
+                v, K.yata_smem_bytes(n1, s1, w, v))
+        try:
+            got = fn(st, _clone(tabs), *args)
+            info = yata_variant_row(name, n1, tabs[2].shape[1], w,
+                                    tabs[0].device, forced or "global")
+            ms = cuda_ms_restored(
+                lambda st=st, work=work: fn(st, work, *args), restore, 5)
+        finally:
+            K.yata_variant = pick
+        ref = plain(st, _clone(tabs), *args)
+        err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+        check(err == 0, f"{name} at N+1={n1} in the {info['variant']} "
+              "variant differs from its plain version")
+        out.append({"N+1": n1, "B": b, "forced": forced is not None,
+                    "max_abs_err": err, "ms": ms, **info})
+        log(f"[kernels] {name} at N+1={n1} over {b} docs ({info['variant']} "
+            f"variant{', forced' if forced else ''}, {info['smem_bytes']} "
+            f"shared bytes, {info['blocks_per_sm']} blocks an SM) equals "
+            "its plain version")
+    return out
+
+
 def yata_rows(yseen: dict, ylaunches: dict) -> list[dict]:
     """K3, K5 and K6 against their plain versions at the largest input the
     YATA path gave each (tables as they were before that call)."""
@@ -2171,6 +2317,8 @@ def yata_rows(yseen: dict, ylaunches: dict) -> list[dict]:
         fn = getattr(K, name)
         b, n1 = dyn[0].shape
         got = fn(statics, _clone(dyn), *rest)
+        w = 0 if name == "batch_step" else max(1, rest[1].shape[2])
+        info = yata_variant_row(name, n1, dyn[2].shape[1], w, dyn[0].device)
         stats = K.new_yata_stats(b, dyn[0].device)
         ref = _clone(dyn)
         plain_ms = once_ms(lambda: plain(statics, ref, *rest, stats=stats))
@@ -2185,7 +2333,6 @@ def yata_rows(yseen: dict, ylaunches: dict) -> list[dict]:
             fn(statics, work, *rest)
 
         ms = cuda_ms_restored(launch, restore)
-        dev_ms = device_ms(launch, YATA_TIMED_LAUNCHES, restore)
         nbytes = yata_bytes(name, (statics, dyn, *rest), stats)
         chain = int(stats["chain"].max())
         sched = rest[1]
@@ -2197,7 +2344,7 @@ def yata_rows(yseen: dict, ylaunches: dict) -> list[dict]:
                      f"schedule={tuple(sched.shape)}",
             "path": "yata",
             "launches": ylaunches[name], "max_abs_err": err,
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "ms": ms, "plain_ms": plain_ms,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None,
             # what limits them is not a roofline bound but the longest
@@ -2205,11 +2352,14 @@ def yata_rows(yseen: dict, ylaunches: dict) -> list[dict]:
             # each load's address comes from the one before it, so the
             # chain runs at one memory round trip a load however few
             # bytes move; ns_per_dep_load is the measured time per load
+            # (by events, launch included)
             "limited_by": "dep_chain", "dep_chain": chain,
-            "ns_per_dep_load": (dev_ms or ms) * 1e6 / max(1, chain),
+            "ns_per_dep_load": ms * 1e6 / max(1, chain),
             "scan_steps": int(stats["scan_steps"].sum()),
             "scanned": int(stats["scanned"].sum()),
             "deferred": int(stats["deferred"].sum()),
+            **info,
+            "variants": variant_rows(name, statics, dyn, rest),
         })
     return rows
 
@@ -2342,7 +2492,7 @@ def shared_lane_writes(lanes: torch.Tensor, k_l: int, k_h: int, n1: int,
 def broadcast_rows(bfig: dict, b_launches: dict) -> list[dict]:
     """K7a and K7b against their plain versions at the broadcast path's
     4096-doc fan-out, each timed beside K1 or K6 on its inputs replicated
-    per doc (``replicated_ms``, ``replicated_device_ms``)."""
+    per doc (``replicated_ms``; K7a's ``replicated_device_ms`` too)."""
     from yjs_tpu_torch.ops import kernels as K
 
     rows = []
@@ -2381,6 +2531,8 @@ def broadcast_rows(bfig: dict, b_launches: dict) -> list[dict]:
     b, n1 = dyn[0].shape
     got = K.batch_step_levels_shared(statics, _clone(dyn), splits, lv, dels,
                                      scratch)
+    info = yata_variant_row("batch_step_levels_shared", n1, dyn[2].shape[1],
+                            max(1, lv.shape[1]), dyn[0].device)
     stats = K.new_yata_stats(b, dyn[0].device)
     ref = _clone(dyn)
     plain_ms = once_ms(lambda: K.batch_step_levels_shared_plain(
@@ -2396,7 +2548,6 @@ def broadcast_rows(bfig: dict, b_launches: dict) -> list[dict]:
         K.batch_step_levels_shared(statics, work, splits, lv, dels, scratch)
 
     ms = cuda_ms_restored(launch, restore)
-    dev_ms = device_ms(launch, YATA_TIMED_LAUNCHES, restore)
     # K6 on the same plan replicated per doc, the unshared yardstick
     rstatics, rdyn, *rrest = bfig["batch_step_levels_replicated"]
     rwork = _clone(rdyn)
@@ -2409,7 +2560,6 @@ def broadcast_rows(bfig: dict, b_launches: dict) -> list[dict]:
         K.batch_step_levels(rstatics, rwork, *rrest)
 
     rep_ms = cuda_ms_restored(rlaunch, rrestore)
-    rep_dev = device_ms(rlaunch, YATA_TIMED_LAUNCHES, rrestore)
     # the shared inputs once; per doc each real lane's gap read (4 B) and
     # every lane slot's two link writes (8 B), each split (14 B) and
     # delete (1 B); per integrated item, scanned item and scan step what
@@ -2432,15 +2582,14 @@ def broadcast_rows(bfig: dict, b_launches: dict) -> list[dict]:
                  f"schedule={tuple(lv.shape)} shared",
         "path": "broadcast",
         "launches": b_launches["batch_step_levels_shared"],
-        "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-        "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "limited_by": "dep_chain", "dep_chain": chain,
-        "ns_per_dep_load": (dev_ms or ms) * 1e6 / max(1, chain),
+        "ns_per_dep_load": ms * 1e6 / max(1, chain),
         "scan_steps": int(stats["scan_steps"].sum()),
         "scanned": int(stats["scanned"].sum()),
         "deferred": int(stats["deferred"].sum()),
-        "replicated_ms": rep_ms, "replicated_device_ms": rep_dev,
+        "replicated_ms": rep_ms, **info,
     })
     return rows
 

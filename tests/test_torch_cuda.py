@@ -604,14 +604,36 @@ def test_scatter_statics_kernel_matches_plain(cuda_device, shape):
 
 
 # (b, w_pad, cap_min, clients): W of 1, 33 and 2048 (the thread stride
-# over lanes), a visit row past 48 KB (cap_min), small client ids only
+# over lanes; at 2048 the doc holds 8193 rows), docs of 16385 rows, small
+# client ids only, then docs of 2049 and 65537 rows
 YATA_SHAPES = [
     (4, 1, 64, YATA_CLIENTS),
     (3, 33, 64, YATA_CLIENTS),
     (2, 2048, 64, YATA_CLIENTS),
     (2, 1, 16384, YATA_CLIENTS),
     (5, 1, 64, (11, 12, 13)),
+    (2, 1, 2048, YATA_CLIENTS),
+    (2, 1, 65536, YATA_CLIENTS),
 ]
+# the variant a doc of N+1 rows and few segments takes on a card whose
+# blocks opt into 227 KB (H100, H200): staged whole while an SM holds
+# sixteen such docs (these tests' docs of 129 and 257 rows), without its
+# visit row while it holds sixteen of those, else not staged
+H100_VARIANT = {2049: "rows", 8193: "global", 16385: "global",
+                65537: "global"}
+
+
+def launched_variant(name: str, n1: int, s1: int, w: int):
+    """The variant the YATA wrapper ``name`` launched last: the one
+    ``kernels.yata_variant`` picks for the card, H100_VARIANT's for a
+    doc of ``n1`` rows, else "shared"."""
+    from yjs_tpu_torch.ops import _cuda
+
+    want, _ = kernels.yata_variant(n1, s1, w,
+                                   _cuda.smem_optin(torch.device("cuda")))
+    assert kernels.last_variant[name] == want
+    assert want == H100_VARIANT.get(n1, "shared")
+    return want
 
 
 @pytest.mark.cuda
@@ -620,7 +642,8 @@ YATA_SHAPES = [
 def test_yata_kernels_match_plain(cuda_device, hang_guard, shape, epoch_max,
                                   monkeypatch):
     """K5 and K6 against their plain versions, flush by flush, on the same
-    tables; ``epoch_max`` 40 forces the visit-epoch restart often."""
+    tables, in the variant each shape's size picks; ``epoch_max`` 40
+    forces the visit-epoch restart often."""
     if epoch_max is not None:
         monkeypatch.setattr(kernels, "EPOCH_MAX", epoch_max)
     b, w_pad, cap_min, clients = shape
@@ -646,9 +669,61 @@ def test_yata_kernels_match_plain(cuda_device, hang_guard, shape, epoch_max,
             out = run_yata(kernel, stage, got, statics_of, to)
             torch.cuda.synchronize()
             assert kernels.launches[name] == before + 1
+            w = 0 if name == "batch_step" else max(1, stage["lv"].shape[2])
+            launched_variant(name, cap + 1, s1, w)
             assert all(o is g for o, g in zip(out, got))
             for r, o in zip(ref, got):
                 assert torch.equal(r, o), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epoch_max", [None, 40])
+@pytest.mark.parametrize("cap_min", [64, 2048, 65536])
+def test_shared_and_sharded_levels_variants_match_plain(
+        cuda_device, hang_guard, cap_min, epoch_max, monkeypatch):
+    """K7b (doc 0's plan read by four docs) and K15 (two shards of two
+    docs on the card, counting) against their plain versions stage by
+    stage, in each variant: whole docs staged, the visit row global,
+    nothing staged; ``epoch_max`` 40 restarts the visit epoch often."""
+    if epoch_max is not None:
+        monkeypatch.setattr(kernels, "EPOCH_MAX", epoch_max)
+    b = 4
+    cap, s1, stages = yata_case(61, b, w_pad=8, cap_min=cap_min)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    ref_b = _torch(yata_tables(b, cap, s1), cuda_device)
+    got_b = _torch(yata_tables(b, cap, s1), cuda_device)
+    ref_s = [_torch([t[:2] for t in yata_tables(b, cap, s1)], cuda_device),
+             _torch([t[2:] for t in yata_tables(b, cap, s1)], cuda_device)]
+    got_s = [tuple(t.clone() for t in tabs) for tabs in ref_s]
+    ref_c = list(torch.zeros((2, 2), dtype=torch.int32, device=cuda_device))
+    got_c = list(torch.zeros((2, 2), dtype=torch.int32, device=cuda_device))
+    for st in stages:
+        one = {k: to(st[k][0]) for k in kernels.STATIC_KEYS}
+        shared = (to(st["splits"][0]), to(st["lv"][0]), to(st["dels"][0]),
+                  to(np.full(b, st["scratch"][0], np.int32)))
+        kernels.batch_step_levels_shared_plain(one, ref_b, *shared)
+        kernels.batch_step_levels_shared(one, got_b, *shared)
+        statics = [{k: to(st[k][h]) for k in kernels.STATIC_KEYS}
+                   for h in (slice(0, 2), slice(2, 4))]
+        args = [[to(st[k][:2]), to(st[k][2:])]
+                for k in ("splits", "lv", "dels", "scratch")]
+        for h in range(2):
+            kernels.batch_step_levels_plain(statics[h], ref_s[h],
+                                            *(a[h] for a in args),
+                                            counter=ref_c[h])
+        kernels.sharded_batch_step_levels(statics, got_s, *args, got_c)
+        torch.cuda.synchronize()
+        w = max(1, st["lv"].shape[2])
+        launched_variant("batch_step_levels_shared", cap + 1, s1, w)
+        launched_variant("sharded_batch_step", cap + 1, s1, w)
+        for r, g in zip(ref_b, got_b):
+            assert torch.equal(r, g)
+        for rs, gs in zip(ref_s, got_s):
+            for r, g in zip(rs, gs):
+                assert torch.equal(r, g)
+    for r, g in zip(ref_c, got_c):
+        assert torch.equal(r, g)
+    assert int(sum(c[0] for c in got_c)) > 0
 
 
 @pytest.mark.cuda
@@ -1511,17 +1586,20 @@ def test_sharded_steps_launch_once_a_device(cuda_device, hang_guard,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cap_min", [64, 2048, 65536])
 @pytest.mark.parametrize("sharded", [False, True])
 def test_levels_visit_scratch_filled_each_call(cuda_device, hang_guard,
-                                               sharded, monkeypatch):
-    """The visit scratch (one block a device, reused from the caching
-    allocator) is filled for every call: with the allocator's free blocks
-    holding large marks (which read as "visited" unless overwritten) and
-    ``epoch_max`` 40 (a refill inside the scan every few items), K6 and
-    K15 equal the plain version stage by stage."""
+                                               sharded, cap_min, monkeypatch):
+    """The visit marks are filled for every call, in each variant (each
+    block fills its own row in shared memory for docs staged whole; a
+    global scratch, one block a device reused from the caching allocator,
+    for longer docs): with the allocator's free blocks holding large
+    marks (which read as "visited" unless overwritten) and ``epoch_max``
+    40 (a refill inside the scan every few items), K6 and K15 equal the
+    plain version stage by stage."""
     monkeypatch.setattr(kernels, "EPOCH_MAX", 40)
     b = 6
-    cap, s1, stages = yata_case(97, b, w_pad=33)
+    cap, s1, stages = yata_case(97, b, w_pad=33, cap_min=cap_min)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
     ref = _torch(yata_tables(b, cap, s1), cuda_device)
     got = _torch(yata_tables(b, cap, s1), cuda_device)
@@ -1544,5 +1622,8 @@ def test_levels_visit_scratch_filled_each_call(cuda_device, hang_guard,
         else:
             kernels.batch_step_levels(statics, got, *args)
         torch.cuda.synchronize()
+        launched_variant("sharded_batch_step" if sharded
+                         else "batch_step_levels", cap + 1, s1,
+                         max(1, st["lv"].shape[2]))
         for r, g in zip(ref, got):
             assert torch.equal(r, g)

@@ -484,14 +484,16 @@ def test_levels_descriptor_rows_and_rounds(n_shards, monkeypatch):
     right, deleted, starts, its rows of the device's one visit and one
     fast scratch, splits, lv, dels, scratch_base, counter, doc count), the
     shared dims once, and one launch per 16 shards, the entry reading
-    exactly these rows."""
+    exactly these rows.  No shared memory to opt into: the global
+    variant, with both scratches."""
     from yjs_tpu_torch.ops import _cuda
 
     case = levels_shards(n_shards)
     statics, dyn, splits, lv, dels, scratch, counters = case
     desc, dims, (visit, fast) = tk._levels_desc(CPU, list(range(n_shards)),
-                                                *case)
-    assert dims == (9, 5, 1, 2, 3, 2, 3)
+                                                *case, limit=0)
+    assert dims == (9, 5, 1, 2, 3, 2, 3, tk.YATA_VARIANTS.index("global"),
+                    0, 0, 0, 0)
     assert visit.shape == (2 * n_shards, 9) and visit.dtype == torch.int32
     assert fast.shape == (2 * n_shards, 3) and fast.dtype == torch.uint8
     assert len(desc) == _cuda.LEVELS_ROW * n_shards
@@ -507,6 +509,42 @@ def test_levels_descriptor_rows_and_rounds(n_shards, monkeypatch):
     assert seen["entry"] == "ytpu_batch_step_levels_sharded"
     assert seen["n"] == n_shards and seen["rows"] == desc
     assert seen["scalars"] == (0, *dims, 123)
+
+
+def _least_limit(variant: str) -> int:
+    """The least opt-in limit at which an SM holds YATA_MIN_DOCS_SM docs
+    of N+1 = 9, S+1 = 5 and W = 3 staged as ``variant`` (whole, or
+    without the visit row), each beside the static and reserved bytes."""
+    block = (tk.yata_smem_bytes(9, 5, 3, variant) + tk.YATA_STATIC_SMEM
+             + tk.YATA_RESERVED_SMEM)
+    return tk.YATA_MIN_DOCS_SM * block - tk.YATA_RESERVED_SMEM
+
+
+_SHARED, _ROWS = _least_limit("shared"), _least_limit("rows")
+
+
+@pytest.mark.parametrize("variant, limit", [
+    ("shared", 232448), ("shared", _SHARED), ("rows", _SHARED - 1),
+    ("rows", _ROWS), ("global", _ROWS - 1), ("global", 0)])
+def test_levels_descriptor_variants(variant, limit):
+    """The variant comes from N+1, S+1, W and the card's opt-in limit
+    alone, with its layout in the dims; a staged visit row leaves no
+    visit scratch (its pointer 0), a staged fast-flag row no fast scratch;
+    the scratch that stays is one for the device, each shard pointing at
+    its rows."""
+    case = levels_shards(4)
+    desc, dims, (visit, fast) = tk._levels_desc(CPU, [0, 1, 2, 3], *case,
+                                                limit=limit)
+    assert tk.YATA_VARIANTS[dims[7]] == variant
+    assert dims[8:] == tk.yata_layout(9, 5, 3, variant)
+    assert (visit is None) == (variant == "shared")
+    assert (fast is None) == (variant != "global")
+    for s in range(4):
+        row = desc[17 * s : 17 * (s + 1)]
+        assert row[9] == (0 if visit is None else visit[2 * s].data_ptr())
+        assert row[10] == (0 if fast is None else fast[2 * s].data_ptr())
+    if visit is not None:
+        assert visit.shape == (8, 9) and bool((visit == tk.NULL).all())
 
 
 @pytest.mark.parametrize("n_shards", sorted(ROUNDS))
@@ -562,7 +600,7 @@ def test_levels_descriptor_checks_each_shard():
         case = levels_shards(n)
         case[field][s] = bad
         with pytest.raises(ValueError, match=match):
-            tk._levels_desc(CPU, shards, *case)
+            tk._levels_desc(CPU, shards, *case, limit=0)
     case = levels_shards(n)
     case[1][4] = (torch.full((2, 11), -1, dtype=torch.int32),
                   torch.zeros((2, 11), dtype=torch.bool),
@@ -570,9 +608,9 @@ def test_levels_descriptor_checks_each_shard():
     case[0][4] = {k: torch.zeros((2, 11), dtype=torch.int32)
                   for k in tk.STATIC_KEYS}
     with pytest.raises(ValueError, match=r"shard 4: N\+1 11 \(shard 0: 9\)"):
-        tk._levels_desc(CPU, shards, *case)
+        tk._levels_desc(CPU, shards, *case, limit=0)
     case = levels_shards(n, zero=(0, 6))
-    desc, dims, (visit, _fast) = tk._levels_desc(CPU, shards, *case)
+    desc, dims, (visit, _fast) = tk._levels_desc(CPU, shards, *case, limit=0)
     assert len(desc) == 17 * (n - 2) and visit.shape == (2 * (n - 2), 9)
     assert [desc[17 * k + 15] for k in range(n - 2)] == [
         case[6][s].data_ptr() for s in shards if s not in (0, 6)]

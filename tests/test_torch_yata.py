@@ -87,19 +87,28 @@ def test_scatter_statics_plain_matches_jax(shape):
         )
 
 
-# (seed, b, w_pad, clients): client ids at and above 2**31 beside small
-# ones, a padded lane width, small ids only
+# sixteen concurrent editors, half of their ids at or above 2**31
+MANY_CLIENTS = tuple(range(1, 9)) + tuple(2**32 - k for k in range(1, 9))
+
+# (seed, b, w_pad, clients, n_ops, cap_min): client ids at and above 2**31
+# beside small ones, a padded lane width, small ids only, sixteen editors
+# whose level lanes defer about a quarter of the time (117 of 471 lanes,
+# four times the others' count), and N+1 = 65537, past what one block's
+# shared memory holds (the global variant on the card)
 KERNEL_CASES = [
-    (31, 4, 1, YATA_CLIENTS),
-    (34, 3, 33, YATA_CLIENTS),
-    (36, 5, 1, (11, 12, 13)),
+    (31, 4, 1, YATA_CLIENTS, 60, 64),
+    (34, 3, 33, YATA_CLIENTS, 60, 64),
+    (36, 5, 1, (11, 12, 13), 60, 64),
+    (40, 4, 1, MANY_CLIENTS, 120, 64),
+    (42, 2, 1, YATA_CLIENTS, 60, 65536),
 ]
 
 
 @pytest.fixture(scope="module", params=KERNEL_CASES, ids=lambda c: f"seed{c[0]}")
 def kernel_case(request):
-    seed, b, w_pad, clients = request.param
-    cap, s1, stages = yata_case(seed, b, w_pad=w_pad, clients=clients,
+    seed, b, w_pad, clients, n_ops, cap_min = request.param
+    cap, s1, stages = yata_case(seed, b, n_ops=n_ops, w_pad=w_pad,
+                                cap_min=cap_min, clients=clients,
                                 uniform=True)
     want = {}
     for name in ("seq", "levels"):
@@ -148,6 +157,53 @@ def test_yata_plain_matches_jax(kernel_case, name, epoch_max, monkeypatch):
     if name == "levels":
         assert scanned <= int(stats["deferred"].sum())
         assert int(stats["deferred"].sum()) > 0
+
+
+# cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100 (227 KB)
+H100_SMEM_OPTIN = 232448
+
+
+@pytest.mark.parametrize("n1, s1, w, want", [
+    (129, 9, 10, "shared"),
+    (1025, 9, 0, "shared"),
+    (1437, 9, 239, "rows"),  # chip_smoke's broadcast step (K7b)
+    (2049, 9, 0, "rows"),
+    (2049, 9, 512, "rows"),
+    (4097, 9, 512, "global"),  # chip_smoke's level steps (K6, K15)
+    (4097, 9, 0, "global"),  # its per-item step (K5)
+    (65537, 9, 512, "global"),
+])
+def test_yata_variant_by_size(n1, s1, w, want):
+    """The YATA steps' variant depends on N+1, S+1 and W alone: the first
+    whose staged doc lets an SM of the card (its opt-in limit plus a
+    block's reserve) hold YATA_MIN_DOCS_SM docs beside the static shared
+    memory; the one before it does not."""
+    variant, nbytes = tk.yata_variant(n1, s1, w, H100_SMEM_OPTIN)
+    assert variant == want
+    assert nbytes == tk.yata_smem_bytes(n1, s1, w, want)
+    sm = H100_SMEM_OPTIN + tk.YATA_RESERVED_SMEM
+
+    def docs(v):
+        block = (tk.yata_smem_bytes(n1, s1, w, v) + tk.YATA_STATIC_SMEM
+                 + tk.YATA_RESERVED_SMEM)
+        return sm // block
+
+    i = tk.YATA_VARIANTS.index(want)
+    if want != "global":
+        assert docs(want) >= tk.YATA_MIN_DOCS_SM
+        assert nbytes + tk.YATA_STATIC_SMEM <= H100_SMEM_OPTIN
+    for before in tk.YATA_VARIANTS[:i]:
+        assert docs(before) < tk.YATA_MIN_DOCS_SM
+    # the rows in whole 16-byte words, each with room for its alignment
+    words = lambda n: -(-n // 4) * 4  # noqa: E731
+    rows = 4 * (words(n1 + 3) + words(s1 + 3)) + w
+    assert tk.yata_smem_bytes(n1, s1, w, "rows") == rows
+    assert tk.yata_smem_bytes(n1, s1, w, "shared") == rows + 4 * words(n1)
+    st_at, visit_at, fast_at, total = tk.yata_layout(n1, s1, w, "shared")
+    assert (st_at, visit_at) == (words(n1 + 3), words(n1 + 3) + words(s1 + 3))
+    assert (4 * fast_at + w, total) == (rows + 4 * words(n1), total)
+    assert tk.yata_layout(n1, s1, w, "global") == (0, 0, 0, 0)
+    assert tk.yata_variant(n1, s1, w, 0) == ("global", 0)
 
 
 def test_kernel_cases_cover_splits_deletes_and_big_clients():

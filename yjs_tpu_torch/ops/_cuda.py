@@ -59,8 +59,10 @@ _ENTRIES = {
     "ytpu_state_vector": ("state_vector", [_vp] * 3 + [_int] * 3 + [_vp]),
     "ytpu_diff_mask": ("diff_mask", [_vp] * 6 + [_int] * 3 + [_vp]),
     "ytpu_scatter_statics": ("statics", [_vp] * 7 + [_int] * 3 + [_vp]),
-    "ytpu_batch_step": ("yata", [_vp] * 13 + [_int] * 7 + [_vp]),
-    "ytpu_batch_step_levels_sharded": ("yata", [_vp] + [_int] * 10 + [_vp]),
+    "ytpu_batch_step": ("yata", [_vp] * 13 + [_int] * 11 + [_vp]),
+    "ytpu_batch_step_levels_sharded": ("yata", [_vp] + [_int] * 15 + [_vp]),
+    "ytpu_smem_optin": ("yata", [_vp, _vp]),
+    "ytpu_yata_occupancy": ("yata", [_int] * 3 + [_vp, _vp]),
     "ytpu_apply_plan_shared": ("apply_lanes", [_vp] * 4 + [_int] * 6 + [_vp]),
     "ytpu_conflict_scan": ("conflict_scan", [_vp] * 12 + [_i64, _vp]),
     "ytpu_anchor_lookup_sharded": ("anchor_lookup", [_vp, _int, _i64, _vp]),
@@ -88,7 +90,7 @@ class KernelError(RuntimeError):
 
 _fns: dict | None = None
 # per source: {"seconds": build wall time (0.0 when cached), "ptxas": the
-# compiler's -Xptxas -v report}
+# compiler's -Xptxas -v report, "path": the library}
 build_info: dict = {}
 
 
@@ -110,6 +112,7 @@ def _build_one(name: str, nvcc: str) -> str:
     build_info[name] = {
         "seconds": time.perf_counter() - t0 if built else 0.0,
         "ptxas": out,
+        "path": path,
     }
     return path
 
@@ -261,17 +264,46 @@ def scatter_statics(packed, cols, k, b, n1) -> None:
           *(_p(c) for c in cols), k, b, n1)
 
 
-def _yata_tables(cols, dyn, visit):
-    return [_p(t) for t in (*cols, *dyn, visit)]
+# the most dynamic shared memory a block may opt into, by device index
+_smem_optin: dict = {}
 
 
-def batch_step(cols, dyn, visit, splits, sched, dels, epoch_max) -> None:
-    """``cols``: the six static columns in ``kernels.STATIC_KEYS`` order."""
+def smem_optin(device: torch.device) -> int:
+    """``cudaDevAttrMaxSharedMemoryPerBlockOptin`` of ``device`` (bytes),
+    read once a device."""
+    if _fns is None:
+        build_all()
+    idx = device.index if device.index is not None else _current_device()
+    if idx not in _smem_optin:
+        out = ctypes.c_int(0)
+        _call("ytpu_smem_optin", torch.device("cuda", idx), ctypes.byref(out))
+        _smem_optin[idx] = out.value
+    return _smem_optin[idx]
+
+
+def yata_occupancy(device: torch.device, kind: int, variant: int,
+                   smem: int) -> tuple[int, int]:
+    """Threads a block and blocks an SM of a YATA step (``kind`` 0: K5,
+    1: K6 and K15, 2: K7b) in variant ``variant`` with ``smem`` dynamic
+    shared bytes on ``device`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    out = (ctypes.c_int * 2)()
+    _call("ytpu_yata_occupancy", device, kind, variant, smem, out)
+    return out[0], out[1]
+
+
+def batch_step(cols, dyn, visit, splits, sched, dels, epoch_max,
+               variant: int, layout) -> None:
+    """``cols``: the six static columns in ``kernels.STATIC_KEYS`` order;
+    ``visit``: the ``[B, N+1]`` visit scratch, None for the shared
+    variant (0), which keeps it in shared memory; ``layout``: the
+    variant's ``kernels.yata_layout`` (K5 stages no fast flags)."""
     right, _deleted, starts = dyn
     b, n1 = right.shape
-    _call("ytpu_batch_step", right.device, *_yata_tables(cols, dyn, visit),
-          _p(splits), _p(sched), _p(dels), b, n1, starts.shape[1],
-          splits.shape[1], sched.shape[1], dels.shape[1], epoch_max)
+    st_at, visit_at, _fast_at, nbytes = layout
+    _call("ytpu_batch_step", right.device, *(_p(t) for t in (*cols, *dyn)),
+          _opt(visit), _p(splits), _p(sched), _p(dels), b, n1,
+          starts.shape[1], splits.shape[1], sched.shape[1], dels.shape[1],
+          epoch_max, variant, st_at, visit_at, nbytes)
 
 
 def batch_step_levels(desc: list, device: torch.device, dims,
@@ -279,9 +311,11 @@ def batch_step_levels(desc: list, device: torch.device, dims,
     """Every shard of ``desc`` (flat rows of :data:`LEVELS_ROW` ints, all
     on ``device``; see ``ytpu_batch_step_levels_sharded``) stepped by one
     launch per :data:`MESH_MAX_SHARDS` shards.  ``dims``: ``n1, s1,
-    n_splits, n_lv, w, n_del, fast_w``, every shard's.  ``shared``: K7b,
-    whose statics, splits, lv and dels are one doc's, read by all.
-    Returns the launches."""
+    n_splits, n_lv, w, n_del, fast_w``, every shard's, then the variant's
+    index in ``kernels.YATA_VARIANTS`` and its ``kernels.yata_layout``
+    (``st_at, visit_at, fast_at, nbytes``).  ``shared``: K7b, whose statics,
+    splits, lv and dels are one doc's, read by all.  Returns the
+    launches."""
     n = len(desc) // LEVELS_ROW
     rows = array.array("q", desc)  # read by the entry before it returns
     _call("ytpu_batch_step_levels_sharded", device, rows.buffer_info()[0], n,

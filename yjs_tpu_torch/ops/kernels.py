@@ -548,6 +548,81 @@ INT32_MAX = 2**31 - 1
 # launch.  Tests lower it to exercise the restart.
 EPOCH_MAX = INT32_MAX
 
+# where a YATA step block keeps its doc's rows (csrc/yata.cu): "shared"
+# stages the link row, the segment heads, the visit row and the level
+# step's fast flags in shared memory; "rows" all but the visit row, which
+# stays in a global scratch; "global" nothing (global visit and fast
+# scratch).  A launch takes the first that leaves room for
+# YATA_MIN_DOCS_SM docs an SM.
+YATA_VARIANTS = ("shared", "rows", "global")
+# shared memory a YATA block declares besides the staged rows (K5's 1 KB
+# ring of schedule entries and their rows, K15's 8-byte counter reduce),
+# with room to spare, kept out of the budget the staged rows may use
+YATA_STATIC_SMEM = 2048
+# shared memory the card reserves for each block (Hopper: 1 KB); an SM
+# holds a block's opt-in limit plus this (H100: 227 + 1 KB)
+YATA_RESERVED_SMEM = 1024
+# the docs an SM must hold at once for a staged variant to be taken: a
+# doc's chain runs on one thread and docs side by side hide each other's
+# latency, while L1 caches an unstaged doc's rows.  Measured on an H100
+# (PERF.md, section 6): staged docs at 19-25 an SM ran 6-14% faster than
+# unstaged, at 11-15 no faster, at 6-13 up to 8x slower
+YATA_MIN_DOCS_SM = 16
+# the variant each YATA wrapper's last CUDA launch took (chip_smoke.py and
+# the card's tests read it)
+last_variant = dict.fromkeys(("batch_step", "batch_step_levels",
+                              "batch_step_levels_shared",
+                              "sharded_batch_step"))
+
+
+def yata_layout(n1: int, s1: int, w: int,
+                variant: str = "shared") -> tuple[int, int, int, int]:
+    """Where a YATA block of ``variant`` stages one doc of ``n1`` (N+1)
+    rows and ``s1`` (S+1) segment heads in its dynamic shared memory:
+    ``(st_at, visit_at, fast_at, nbytes)``.  The link row starts at int32
+    0 and the heads at ``st_at``, each in whole 16-byte words with room to
+    start at its global row's address mod 16 (so that it copies 16 bytes
+    at a time); the visit row (``"shared"``) at ``visit_at``; ``w``
+    fast-flag bytes (the level step's ``max(1, W)``; 0 for K5) at int32
+    ``fast_at``; ``nbytes`` in all.  All 0 for ``"global"``."""
+    if variant == "global":
+        return 0, 0, 0, 0
+
+    def words(n):  # int32 in whole 16-byte words
+        return -(-n // 4) * 4
+
+    st_at = words(n1 + 3)
+    visit_at = st_at + words(s1 + 3)
+    fast_at = visit_at + (words(n1) if variant == "shared" else 0)
+    return st_at, visit_at, fast_at, 4 * fast_at + w
+
+
+def yata_smem_bytes(n1: int, s1: int, w: int, variant: str = "shared") -> int:
+    """Dynamic shared-memory bytes a YATA block of ``variant`` stages for
+    one doc (:func:`yata_layout`)."""
+    return yata_layout(n1, s1, w, variant)[3]
+
+
+def yata_docs_per_sm(nbytes: int, limit: int) -> int:
+    """The staged docs of ``nbytes`` each that an SM's shared memory holds
+    at once on a card whose blocks may opt into ``limit`` bytes."""
+    if nbytes + YATA_STATIC_SMEM > limit:
+        return 0
+    return ((limit + YATA_RESERVED_SMEM)
+            // (nbytes + YATA_STATIC_SMEM + YATA_RESERVED_SMEM))
+
+
+def yata_variant(n1: int, s1: int, w: int, limit: int) -> tuple[str, int]:
+    """The YATA step's variant for docs of these widths on a card whose
+    blocks may opt into ``limit`` bytes of shared memory: the first of
+    :data:`YATA_VARIANTS` whose staged doc (:func:`yata_smem_bytes`) still
+    lets an SM hold :data:`YATA_MIN_DOCS_SM` docs, and its bytes."""
+    for variant in YATA_VARIANTS[:2]:
+        nbytes = yata_smem_bytes(n1, s1, w, variant)
+        if yata_docs_per_sm(nbytes, limit) >= YATA_MIN_DOCS_SM:
+            return variant, nbytes
+    return "global", 0
+
 
 def _gather_idx(i: torch.Tensor, n: int) -> torch.Tensor:
     """JAX's gather index rule: a negative index counts from the end,
@@ -789,7 +864,8 @@ def new_yata_stats(b: int, device="cpu") -> dict:
 
 
 def _new_visit(rl: torch.Tensor):
-    """Per-launch visit scratch (-1: unmarked) and per-doc counters."""
+    """Per-launch visit scratch (-1: unmarked) and per-doc counters (the
+    plain versions')."""
     visit = torch.full_like(rl, NULL)
     counter = torch.zeros(rl.shape[0], dtype=torch.int32, device=rl.device)
     return visit, counter
@@ -836,12 +912,18 @@ def batch_step(statics, dyn, splits, sched, delete_rows):
         return batch_step_plain(statics, dyn, splits, sched, delete_rows)
     _check_yata(statics, dyn, splits, sched, delete_rows)
     _check_step_shapes(splits, sched, (0, 4), delete_rows)
-    right = dyn[0]
+    right, _deleted, starts = dyn
     if right.shape[0]:
-        visit = torch.full_like(right, NULL)
+        n1, s1 = right.shape[1], starts.shape[1]
+        variant, _ = yata_variant(n1, s1, 0, _cuda.smem_optin(right.device))
+        # the visit marks of a doc not staged whole live in global memory
+        visit = None if variant == "shared" else torch.full_like(right, NULL)
         _cuda.batch_step([statics[k] for k in STATIC_KEYS], dyn, visit,
-                         splits, sched, delete_rows, EPOCH_MAX)
+                         splits, sched, delete_rows, EPOCH_MAX,
+                         YATA_VARIANTS.index(variant),
+                         yata_layout(n1, s1, 0, variant))
         launches["batch_step"] += 1
+        last_variant["batch_step"] = variant
     return dyn
 
 
@@ -938,10 +1020,12 @@ def batch_step_levels(statics, dyn, splits, lv_sched, delete_rows,
         return batch_step_levels_plain(statics, dyn, *args, counter=counter)
     dev = dyn[0].device
     desc, dims, _scratch = _levels_desc(
-        dev, (0,), [statics], [dyn], *([a] for a in args), [counter])
+        dev, (0,), [statics], [dyn], *([a] for a in args), [counter],
+        limit=_cuda.smem_optin(dev))
     if desc:
         launches["batch_step_levels"] += _cuda.batch_step_levels(
             desc, dev, dims, EPOCH_MAX)
+        last_variant["batch_step_levels"] = YATA_VARIANTS[dims[7]]
     return dyn
 
 
@@ -952,13 +1036,40 @@ def _levels_row(cols, dyn, visit: int, fast: int, sched, counter: int,
                 b: int) -> list:
     """One shard's :data:`_cuda.LEVELS_ROW` ints of the K6 descriptor:
     the ``data_ptr`` of the six static columns, right, deleted, starts,
-    the visit and fast scratch rows (pointers given), splits, lv, dels,
-    scratch_base and the counter (0 for none), then the doc count."""
+    the visit and fast scratch rows (pointers given, 0 where the variant
+    keeps them in shared memory), splits, lv, dels, scratch_base and the
+    counter (0 for none), then the doc count."""
     return [*(c.data_ptr() for c in cols), *(t.data_ptr() for t in dyn),
             visit, fast, *(t.data_ptr() for t in sched), counter, b]
 
 
 _SCHED_NAMES = ("splits", "lv_sched", "delete_rows", "scratch_base")
+
+
+def _level_scratch(variant: str, b: int, n1: int, fast_w: int, dev):
+    """The global scratch a level step of ``variant`` needs for ``b``
+    docs: ``(visit, fast)``, a ``[b, N+1]`` int32 visit scratch filled
+    with -1 unless ``"shared"`` and a ``[b, fast_w]`` uint8 fast-flag
+    scratch for ``"global"``, None where the block stages them."""
+    visit = fast = None
+    if variant != "shared":
+        visit = torch.full((b, n1), NULL, dtype=torch.int32, device=dev)
+    if variant == "global":
+        fast = torch.empty((b, fast_w), dtype=torch.uint8, device=dev)
+    return visit, fast
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _levels_dims(first, fast_w: int, variant: str) -> tuple:
+    """``_cuda.batch_step_levels``' dims: ``first`` (``n1, s1, n_splits,
+    n_lv, w, n_del``), ``fast_w``, the variant's index in
+    :data:`YATA_VARIANTS` and its :func:`yata_layout`."""
+    n1, s1 = first[0], first[1]
+    return (*first, fast_w, YATA_VARIANTS.index(variant),
+            *yata_layout(n1, s1, fast_w, variant))
 
 
 def _levels_shard(s, dev, cols, dyn, sched, counter):
@@ -999,19 +1110,22 @@ def _levels_shard(s, dev, cols, dyn, sched, counter):
 
 
 def _levels_desc(dev, shards, statics, dyn, splits, lv, dels, scratch,
-                 counters):
+                 counters, *, limit: int):
     """The K6/K15 launch descriptor for ``shards`` (indices into the
     per-shard lists: statics dicts, ``(right, deleted, starts)`` tables,
     schedules and counters, None for no counter), every tensor on
-    ``dev``: each shard's tensors checked once, one visit scratch ``[sum
-    b, N+1]`` int32 filled with -1 and one fast-flag scratch ``[sum b,
-    max(1, W)]`` uint8 for the device, and :func:`_levels_row` a shard with
-    docs, in shard order, pointing at its rows of both.  A shard whose
-    N+1, S+1, split, level, lane or delete width differs from the
+    ``dev``, whose blocks may opt into ``limit`` bytes of shared memory:
+    each shard's tensors checked once, the variant
+    (:func:`yata_variant`), the global scratch it needs for the device —
+    a visit scratch ``[sum b, N+1]`` int32 filled with -1 unless
+    ``"shared"``, a fast-flag scratch ``[sum b, max(1, W)]`` uint8 for
+    ``"global"`` — and :func:`_levels_row` a shard with docs, in shard
+    order, pointing at its rows of both (0 where there is none).  A shard
+    whose N+1, S+1, split, level, lane or delete width differs from the
     first's, or whose tensors lie on another device, raises
     ``ValueError``.  Returns ``(desc, dims, (visit, fast))``: ``dims`` is
-    ``_cuda.batch_step_levels``' (``n1, s1, n_splits, n_lv, w, n_del,
-    fast_w``); keep the scratch until the launch is enqueued."""
+    ``_cuda.batch_step_levels``' (:func:`_levels_dims`); keep the scratch
+    until the launch is enqueued."""
     first = None
     live = []
     total = 0
@@ -1031,17 +1145,17 @@ def _levels_desc(dev, shards, statics, dyn, splits, lv, dels, scratch,
             total += b
     if first is None:
         return [], None, None
-    n1, fast_w = first[0], max(1, first[4])
-    visit = torch.full((total, n1), NULL, dtype=torch.int32, device=dev)
-    fast = torch.empty((total, fast_w), dtype=torch.uint8, device=dev)
-    vp, fp = visit.data_ptr(), fast.data_ptr()
+    n1, s1, fast_w = first[0], first[1], max(1, first[4])
+    variant, _ = yata_variant(n1, s1, fast_w, limit)
+    visit, fast = _level_scratch(variant, total, n1, fast_w, dev)
+    vp, fp = _ptr(visit), _ptr(fast)
     desc = []
     for s, b, cols, sched, counter in live:
         desc += _levels_row(cols, dyn[s], vp, fp, sched,
                             0 if counter is None else counter.data_ptr(), b)
-        vp += 4 * n1 * b
-        fp += fast_w * b
-    return desc, (*first, fast_w), (visit, fast)
+        vp += 4 * n1 * b if vp else 0
+        fp += fast_w * b if fp else 0
+    return desc, _levels_dims(first, fast_w, variant), (visit, fast)
 
 
 # ---------------------------------------------------------------------------
@@ -1155,15 +1269,16 @@ def batch_step_levels_shared(statics, dyn, splits, lv_sched, delete_rows,
         raise ValueError("scratch_base must be [B]")
     if b:
         dev = right.device
-        visit = torch.full_like(right, NULL)
-        fast_w = max(1, lv_sched.shape[1])
-        fast = torch.empty((b, fast_w), dtype=torch.uint8, device=dev)
-        row = _levels_row(cols, dyn, visit.data_ptr(), fast.data_ptr(),
-                          args, 0, b)
-        dims = (n1, starts.shape[1], splits.shape[0], lv_sched.shape[0],
-                lv_sched.shape[1], delete_rows.shape[0], fast_w)
+        s1, fast_w = starts.shape[1], max(1, lv_sched.shape[1])
+        variant, _ = yata_variant(n1, s1, fast_w, _cuda.smem_optin(dev))
+        visit, fast = _level_scratch(variant, b, n1, fast_w, dev)
+        row = _levels_row(cols, dyn, _ptr(visit), _ptr(fast), args, 0, b)
+        dims = _levels_dims((n1, s1, splits.shape[0], lv_sched.shape[0],
+                             lv_sched.shape[1], delete_rows.shape[0]),
+                            fast_w, variant)
         launches["batch_step_levels_shared"] += _cuda.batch_step_levels(
             row, dev, dims, EPOCH_MAX, shared=True)
+        last_variant["batch_step_levels_shared"] = variant
     return dyn
 
 
@@ -1357,18 +1472,20 @@ def sharded_batch_step_levels(statics, dyn, splits, lv, dels, scratch,
     ``s`` runs :func:`batch_step_levels` on its statics dict, tables and
     schedule blocks (``splits[s]``, ``lv[s]``, ``dels[s]``,
     ``scratch[s]``), counting into ``counters[s]`` (a ``[2]`` int32 row, or
-    None).  The shards of one CUDA device share one visit and one fast
-    scratch and one launch (a round per :data:`_cuda.MESH_MAX_SHARDS`
-    shards with docs, counted in ``launches["sharded_batch_step"]``);
-    shards on the CPU take the plain version.  Returns ``dyn``."""
+    None).  The shards of one CUDA device share one launch (a round per
+    :data:`_cuda.MESH_MAX_SHARDS` shards with docs, counted in
+    ``launches["sharded_batch_step"]``) and whatever global scratch its
+    variant needs; shards on the CPU take the plain version.  Returns
+    ``dyn``."""
     for dev, shards in _shard_devices(dyn).items():
         if dev.type == "cuda":
             desc, dims, _scratch = _levels_desc(
                 dev, shards, statics, dyn, splits, lv, dels, scratch,
-                counters)
+                counters, limit=_cuda.smem_optin(dev))
             if desc:
                 launches["sharded_batch_step"] += _cuda.batch_step_levels(
                     desc, dev, dims, EPOCH_MAX)
+                last_variant["sharded_batch_step"] = YATA_VARIANTS[dims[7]]
         elif dev.type == "cpu":
             for s in shards:
                 batch_step_levels_plain(statics[s], dyn[s], splits[s], lv[s],
