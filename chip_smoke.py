@@ -100,7 +100,9 @@ script exits non-zero:
      path's (``sharded_batch_step``, K15);
    - ``state_vectors_batched`` over every doc equal to the unmeshed
      engine's and 32 CPU Docs' (``sharded_state_vectors``, K16), and K16
-     on a 2 x 2 (docs x rows) mesh equal to unsharded K9 (the MAX fold);
+     on a 2 x 2 (docs x rows) mesh equal to unsharded K9, each one K16
+     launch and no fold by the wrappers' counts (the row shards meet in
+     one output on the card);
    - a 64-doc Python-mirror meshed engine (``YTPU_NO_NATIVE_PLAN=1``)
      beside a CPU-mesh twin, both planning cold: traces, then a seeded
      burst whose chunk plan runs the sharded lookup (K13); tables equal
@@ -139,6 +141,14 @@ script exits non-zero:
    ``kernels_a_call`` (the kernels one call launches, by name, from
    ``torch.profiler``, which may lose an event: checked to be no more
    than one a device);
+   K16's row adds ``launches_a_call`` on the 1-D and on the 2 x 2
+   (docs x rows) mesh of the card, each checked to be one launch and no
+   fold, ``ms_2x2`` and ``host_us``; K8's adds the ``variant`` it ran
+   (checked: "staged", in shared memory, at the export's N+1 = 2049),
+   the ``rounds`` it ran of ``max_rounds``, its staged ``smem_bytes``,
+   ``host_us`` and an empty kernel's events and device ms through the
+   same launch path (``floor_ms``, ``floor_device_ms``), the floor under
+   any one-launch call;
    K13's ``library_one_ms`` (one ``torch.searchsorted`` over the whole
    query, which on one card computes the same function) and K11's time
    with its shared-memory sample staged and not staged, in turns, each
@@ -1571,12 +1581,21 @@ def mesh_path(traces: list[bytes], edits: dict[int, list[bytes]],
         f"plain fold; {len(sample)} sampled docs' texts and encoded states "
         f"equal the CPU Doc ({len(hydrated)} hydrated)")
 
-    # K16 on the doc axis: the batched state vectors of every doc
+    # K16 on the doc axis: the batched state vectors of every doc, one
+    # launch for the four shards of the card and no fold (the wrappers'
+    # counts over the call)
     docs = list(range(n_docs))
     torch.cuda.synchronize()
+    before = dict(K.launches)
     t0 = time.perf_counter()
     svs = eng.state_vectors_batched(docs)
     out["t_state_vectors"] = time.perf_counter() - t0
+    sv_grew = {k: K.launches[k] - before[k] for k in
+               ("sharded_state_vectors", "shard_fold", "state_vector")}
+    check(sv_grew == {"sharded_state_vectors": 1, "shard_fold": 0,
+                      "state_vector": 0},
+          f"state_vectors_batched on {N_SHARDS} shards of the card launched "
+          f"{sv_grew}, not one K16 launch and no fold")
     check(svs == main_fig["state_vectors"],
           "meshed state vectors differ from the unmeshed engine's")
     for i in sample:
@@ -1595,17 +1614,25 @@ def mesh_path(traces: list[bytes], edits: dict[int, list[bytes]],
     out["sv_cols"] = (row_slot, row_end, n_slots)
     mesh2 = DocMesh(np.full((2, 2), card, dtype=object), ("docs", "rows"))
     out["mesh2"] = mesh2
+    before = dict(K.launches)
     got2 = pm.sharded_state_vectors(mesh2, n_slots, "docs", "rows")(
         row_slot, row_end)
+    sv2_grew = {k: K.launches[k] - before[k] for k in
+                ("sharded_state_vectors", "shard_fold", "state_vector")}
+    check(sv2_grew == {"sharded_state_vectors": 1, "shard_fold": 0,
+                       "state_vector": 0},
+          f"K16 on the 2 x 2 mesh of the card launched {sv2_grew}, not one "
+          "launch and no fold")
     one = K.state_vector_kernel(pm.put_host(row_slot, card),
                                 pm.put_host(row_end, card), n_slots)
     check(torch.equal(got2, one), "the 2 x 2 sharded state vectors differ "
           "from unsharded K9")
     log(f"[mesh] state_vectors_batched over {n_docs} docs "
         f"{out['t_state_vectors']:.4f}s equals the unmeshed engine's and "
-        f"{len(sample)} CPU Docs'; on a 2 x 2 (docs x rows) mesh over "
-        f"[{row_slot.shape[0]}, {row_slot.shape[1]}] sync columns "
-        f"({n_slots} slots) K16 equals unsharded K9")
+        f"{len(sample)} CPU Docs' (launches {sv_grew}); on a 2 x 2 (docs x "
+        f"rows) mesh over [{row_slot.shape[0]}, {row_slot.shape[1]}] sync "
+        f"columns ({n_slots} slots) K16 equals unsharded K9 (launches "
+        f"{sv2_grew})")
     out["lanes"] = spy.seen["lanes"][1]
     del eng, spy
 
@@ -1841,13 +1868,34 @@ def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
 
     check(torch.equal(library()[:, :n_slots], ref),
           "scatter_reduce_ disagrees with K16's plain version")
+    # and on the 2 x 2 (docs x rows) mesh, the row shards meeting in one
+    # output: one launch a call on the one card, no fold, by the counts
+    mesh2 = mfig["mesh2"]
+    bs2 = pm.state_vector_blocks(mesh2, row_slot, "docs", "rows")
+    be2 = pm.state_vector_blocks(mesh2, row_end, "docs", "rows")
+    fn2 = pm.sharded_state_vectors(mesh2, n_slots, "docs", "rows")
+    got2 = fn2(bs2, be2)
+    err = max(err, max_abs_err(got2, ref))
+    a_call = {}
+    for key, call in (("1-D", lambda: fn(bs, be)), ("2x2", lambda: fn2(bs2, be2))):
+        before = dict(K.launches)
+        call()
+        torch.cuda.synchronize()
+        a_call[key] = {k: v - before.get(k, 0) for k, v in K.launches.items()
+                       if v != before.get(k, 0)}
+        check(a_call[key] == {"sharded_state_vectors": 1},
+              f"K16 on the {key} mesh launched {a_call[key]} in one call on "
+              "one card, not one launch and no fold")
     rows.append({
         "name": "sharded_state_vectors", "route": "cuda",
         "source": "yjs_tpu_torch/csrc/state_vector.cu",
         "replaces": "yjs_tpu/parallel/mesh.py:168",
         "shape": f"shards={len(bs)} B={b} N={n} n_slots={n_slots}",
         "launches": m_launches["sharded_state_vectors"], "max_abs_err": err,
+        "devices": 1, "launches_a_call": a_call,
         "ms": cuda_ms(lambda: fn(bs, be)),
+        "ms_2x2": cuda_ms(lambda: fn2(bs2, be2)),
+        "host_us": host_split(lambda: fn(bs, be)),
         "device_ms": device_ms(lambda: fn(bs, be)),
         "plain_ms": cuda_ms(lambda: pfn(bs, be), 5),
         "bound_ms": (row_slot.nbytes + row_end.nbytes + 4 * b * n_slots)
@@ -2667,11 +2715,22 @@ def kernel_phase(seen: dict, launches: dict, pseen: dict,
         "library_ms": lib_ms,
     })
 
-    # list_ranks at the export's shapes (one doc row)
+    # list_ranks at the export's shapes (one doc row), with the rounds it
+    # ran, its variant (staged in shared memory at this width: checked) and
+    # the floor under any one-launch call: an empty kernel's events and
+    # device time through the same ctypes path
+    from yjs_tpu_torch.ops import _cuda
+
     right1, valid1 = seen["list_ranks"]
-    got = K.list_ranks(right1, valid1)
-    ref = K.list_ranks_plain(right1, valid1)
-    err = max_abs_err(got, ref)
+    n1 = right1.shape[1]
+    ran = torch.zeros(1, dtype=torch.int32, device=right1.device)
+    ran_plain = torch.zeros_like(ran)
+    got = K.list_ranks(right1, valid1, ran)
+    ref = K.list_ranks_plain(right1, valid1, ran_plain)
+    err = max(max_abs_err(got, ref), max_abs_err(ran, ran_plain))
+    variant = K.last_variant["list_ranks"]
+    check(variant == "staged",
+          f"list_ranks at N+1={n1} ran {variant}, not staged")
     ms = cuda_ms(lambda: K.list_ranks(right1, valid1))
     dev_ms = device_ms(lambda: K.list_ranks(right1, valid1))
     plain_ms = cuda_ms(lambda: K.list_ranks_plain(right1, valid1))
@@ -2680,9 +2739,16 @@ def kernel_phase(seen: dict, launches: dict, pseen: dict,
         "name": "list_ranks", "route": "cuda",
         "source": "yjs_tpu_torch/csrc/list_ranks.cu",
         "replaces": "yjs_tpu/ops/kernels.py:674",
-        "shape": f"b={right1.shape[0]} N+1={right1.shape[1]}",
+        "shape": f"b={right1.shape[0]} N+1={n1}",
         "launches": launches["list_ranks"], "max_abs_err": err,
+        "variant": variant, "rounds": int(ran.item()),
+        "max_rounds": K._n_rounds(n1),
+        "smem_bytes": K.LIST_RANKS_ROW_BYTES * n1,
         "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "host_us": host_split(lambda: K.list_ranks(right1, valid1)),
+        "floor_ms": cuda_ms(lambda: _cuda.empty_launch(right1.device)),
+        "floor_device_ms": device_ms(
+            lambda: _cuda.empty_launch(right1.device)),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,
     })

@@ -125,6 +125,45 @@ def ranks_case(seed: int, b: int, n1: int):
     return right, valid
 
 
+# K8's staged limit on a card whose blocks opt into 227 KB (H100, H200):
+# a doc's four planes of d and p, 16 bytes a row
+# (kernels.LIST_RANKS_ROW_BYTES), fit up to this N+1
+H100_SMEM_OPTIN = 232448
+H100_STAGED_ROWS = H100_SMEM_OPTIN // 16
+RANK_KINDS = ("chain", "cycle", "wild")
+
+
+def rank_kind_case(kind: str, seed: int, b: int, n1: int):
+    """One seeded K8 case of ``kind`` per doc: "chain", one list through
+    every row in a random order, all valid; "cycle", a random order whose
+    tail links back into it, with a tail of other rows feeding the cycle
+    and some rows valid; "wild", links anywhere in ``[-2 (N+1), 2 (N+1)]``
+    and at the int32 extremes (JAX's gather reads a negative link from
+    the end and anything else outside ``[0, N+1)`` as INT32_MIN)."""
+    g = np.random.default_rng(seed)
+    right = np.full((b, n1), NULL, np.int32)
+    valid = g.random((b, n1)) < 0.7
+    for d in range(b):
+        order = g.permutation(n1)
+        if kind == "chain":
+            right[d, order[:-1]] = order[1:]
+            valid[d] = True
+        elif kind == "cycle":
+            k = int(g.integers(1, n1 + 1))  # rows on the cycle
+            ring = order[:k]
+            right[d, ring] = np.roll(ring, -1)
+            feed = order[k:]
+            if len(feed):
+                right[d, feed] = g.choice(ring, size=len(feed))
+        else:
+            right[d] = g.integers(-2 * n1, 2 * n1 + 1, size=n1)
+            ext = g.random(n1)
+            right[d, ext < 0.05] = np.iinfo(np.int32).min
+            right[d, (ext >= 0.05) & (ext < 0.1)] = np.iinfo(np.int32).max
+            right[d, (ext >= 0.1) & (ext < 0.3)] = NULL
+    return right, valid
+
+
 def sync_case(seed: int, b: int, n: int, n_slots: int, wide: bool = False):
     """One seeded K9/K10 case: ``row_slot, row_clock, row_end [b, n]`` and
     a remote ``sv [b, n_slots]``, all int32.
@@ -219,6 +258,45 @@ def test_list_ranks_kernel_matches_plain(cuda_device, shape):
     got = kernels.list_ranks(right, valid)
     torch.cuda.synchronize()
     assert torch.equal(ref, got)
+    assert kernels.last_variant["list_ranks"] == "staged"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [None, "staged", "global"])
+@pytest.mark.parametrize("kind", ("lists",) + RANK_KINDS)
+@pytest.mark.parametrize("shape", [(1, 1), (1, 2), (1, 2049), (1, 4097),
+                                   (5, 300), (1, H100_STAGED_ROWS),
+                                   (1, H100_STAGED_ROWS + 1)])
+def test_list_ranks_variants_match_plain(cuda_device, shape, kind, variant,
+                                         monkeypatch):
+    """K8 in each variant, forced (None: the one the size picks), against
+    its plain version on lists, one chain through the row, cycles and
+    wild links, with the rounds run counted alike; the staged variant
+    only where a doc's planes fit the card's opt-in shared memory."""
+    from yjs_tpu_torch.ops import _cuda
+
+    b, n1 = shape
+    limit = _cuda.smem_optin(cuda_device)
+    natural = kernels.list_ranks_variant(n1, limit)
+    if variant == "staged" and natural != "staged":
+        variant = None  # past the limit the staged launch is refused
+    if variant is not None:
+        monkeypatch.setattr(kernels, "list_ranks_variant",
+                            lambda _n1, _limit: variant)
+    case = (ranks_case(13 + n1, b, n1) if kind == "lists"
+            else rank_kind_case(kind, 17 + n1, b, n1))
+    right, valid = _torch(case, cuda_device)
+    ref_c = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got_c = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    ref = kernels.list_ranks_plain(right, valid, ref_c)
+    before = kernels.launches["list_ranks"]
+    got = kernels.list_ranks(right, valid, got_c)
+    torch.cuda.synchronize()
+    assert kernels.launches["list_ranks"] == before + 1
+    assert kernels.last_variant["list_ranks"] == (variant or natural)
+    assert natural == ("staged" if n1 <= H100_STAGED_ROWS else "global")
+    assert torch.equal(ref, got)
+    assert torch.equal(ref_c, got_c)
 
 
 @pytest.mark.cuda
@@ -1221,31 +1299,78 @@ def test_levels_progress_counter_matches_plain(cuda_device, hang_guard, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("placed", [False, True])
 @pytest.mark.parametrize("rows", [0, 2])
 @pytest.mark.parametrize("wide", [False, True])
-def test_sharded_state_vectors_kernel_matches_plain(cuda_device, rows, wide):
+def test_sharded_state_vectors_kernel_matches_plain(cuda_device, rows, wide,
+                                                    placed):
     """K16 on four doc shards of the card (and 4 x 2 with a rows axis,
-    the MAX fold joining the row shards) against its plain version and
-    unsharded K9 (with slots past the shared-memory limit when wide)."""
+    the row shards meeting in one output by atomicMax) against its plain
+    version and unsharded K9 (with slots past the shared-memory limit when
+    wide), from host arrays and from placed blocks: one launch and no
+    fold, the shards sharing the card."""
     from yjs_tpu_torch.parallel import mesh as pm
 
     n_slots = 13000 if wide else 5
     row_slot, _clock, row_end, _sv = sync_case(61, 64, 300, n_slots)
     mesh = _mesh_of(cuda_device, 4, rows)
     axes = ("docs", "rows") if rows else ("docs", None)
+    args = ((pm.state_vector_blocks(mesh, row_slot, *axes),
+             pm.state_vector_blocks(mesh, row_end, *axes)) if placed
+            else (row_slot, row_end))
     before = dict(kernels.launches)
-    got = pm.sharded_state_vectors(mesh, n_slots, *axes)(row_slot, row_end)
+    got = pm.sharded_state_vectors(mesh, n_slots, *axes)(*args)
     torch.cuda.synchronize()
     assert got.is_cuda
-    ref = pm.sharded_state_vectors(mesh, n_slots, *axes, plain=True)(
-        row_slot, row_end)
-    one = kernels.state_vector_kernel_plain(
+    assert (kernels.launches["sharded_state_vectors"]
+            == before["sharded_state_vectors"] + 1)
+    assert kernels.launches["shard_fold"] == before["shard_fold"]
+    ref = pm.sharded_state_vectors(mesh, n_slots, *axes, plain=True)(*args)
+    one = kernels.state_vector_kernel(
+        *_torch((row_slot, row_end), cuda_device), n_slots)
+    plain = kernels.state_vector_kernel_plain(
         *_torch((row_slot, row_end), cuda_device), n_slots)
     assert torch.equal(ref, got) and torch.equal(one, got)
+    assert torch.equal(plain, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slots", [5, 13000])
+@pytest.mark.parametrize("n_shards", [1, 4, 17, 70])
+def test_sharded_state_vector_shard_counts(cuda_device, n_shards, n_slots):
+    """K16 over 1 to 70 doc shards of the card (70: two launches, the
+    cap being 64 shards), with a doc block of no docs and a row shard of
+    no columns among placed blocks: equal to unsharded K9 and its plain
+    version, one launch per 64 shards with rows."""
+    from yjs_tpu_torch.ops import _cuda
+    from yjs_tpu_torch.parallel import mesh as pm
+
+    b = 2 * n_shards
+    row_slot, _clock, row_end, _sv = sync_case(71 + n_shards, b, 300, n_slots)
+    mesh = _mesh_of(cuda_device, n_shards)
+    before = kernels.launches["sharded_state_vectors"]
+    got = pm.sharded_state_vectors(mesh, n_slots)(row_slot, row_end)
+    torch.cuda.synchronize()
     assert (kernels.launches["sharded_state_vectors"]
-            == before["sharded_state_vectors"] + 4 * max(1, rows))
-    assert (kernels.launches["shard_fold"]
-            == before["shard_fold"] + (4 if rows else 0))
+            == before + -(-n_shards // _cuda.SV_MAX_SHARDS))
+    slot_d, end_d = _torch((row_slot, row_end), cuda_device)
+    assert torch.equal(got, kernels.state_vector_kernel(slot_d, end_d,
+                                                        n_slots))
+    assert torch.equal(got, kernels.state_vector_kernel_plain(slot_d, end_d,
+                                                              n_slots))
+    # placed blocks: doc block 0 empty, row shard 1 of no columns, the
+    # rest views of the whole arrays with their row stride
+    cuts = [0, 0] + [2 * k for k in range(1, n_shards + 1)]
+    slots = [[slot_d[cuts[k]:cuts[k + 1], :], slot_d[cuts[k]:cuts[k + 1], :0]]
+             for k in range(len(cuts) - 1)]
+    ends = [[end_d[cuts[k]:cuts[k + 1], :], end_d[cuts[k]:cuts[k + 1], :0]]
+            for k in range(len(cuts) - 1)]
+    before = kernels.launches["sharded_state_vectors"]
+    again = kernels.sharded_state_vector(slots, ends, n_slots)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+    assert (kernels.launches["sharded_state_vectors"]
+            == before + -(-n_shards // _cuda.SV_MAX_SHARDS))
 
 
 @pytest.mark.cuda
@@ -1407,7 +1532,7 @@ def test_meshed_engine_on_card_matches_cpu_mesh(cuda_device, hang_guard, lane,
     grew = {k: kernels.launches[k] - before[k] for k in before}
     want = {"apply": "sharded_apply_plan", "levels": "sharded_batch_step",
             "seq": "batch_step"}[lane]
-    assert grew[want] > 0 and grew["sharded_state_vectors"] == 4
+    assert grew[want] > 0 and grew["sharded_state_vectors"] == 1
     if lane != "seq":
         assert grew["shard_fold"] > 0
     if mirror == "python":

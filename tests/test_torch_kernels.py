@@ -9,12 +9,17 @@ kernels are held against the same plain versions on the card by
 ``test_torch_cuda.py``, whose case builders this file shares.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from test_torch_cuda import apply_case, ranks_case, scatter_case
+from test_torch_cuda import (
+    H100_SMEM_OPTIN, H100_STAGED_ROWS, RANK_KINDS, apply_case, rank_kind_case,
+    ranks_case, scatter_case,
+)
 from yjs_tpu.ops import kernels as jk
 from yjs_tpu.ops import segment_planner as jsp
 from yjs_tpu_torch.ops import kernels as tk
@@ -108,6 +113,57 @@ def test_list_ranks_plain_matches_jax(seed, shape):
     want = jk.list_ranks(jnp.asarray(right), jnp.asarray(valid))
     got = tk.list_ranks(torch.from_numpy(right), torch.from_numpy(valid))
     np.testing.assert_array_equal(_np(want), _np(got))
+
+
+@pytest.mark.parametrize("n1", [1, 2, 2049, 8193, H100_STAGED_ROWS,
+                                H100_STAGED_ROWS + 1])
+@pytest.mark.parametrize("kind", RANK_KINDS)
+def test_list_ranks_plain_matches_jax_on_chains_cycles_and_wild_links(kind,
+                                                                      n1):
+    """One chain through the whole row, a cycle (which stays live every
+    round) and links outside ``[0, N+1)`` (JAX's gather rule), at the
+    widths the export uses and at the staged limit of an H100 and one
+    past it."""
+    right, valid = rank_kind_case(kind, 7 * n1, 2 if n1 < 4096 else 1, n1)
+    want = jk.list_ranks(jnp.asarray(right), jnp.asarray(valid))
+    got = tk.list_ranks(torch.from_numpy(right), torch.from_numpy(valid))
+    np.testing.assert_array_equal(_np(want), _np(got))
+
+
+@pytest.mark.parametrize("n1", [2, 3, 2049, 4097])
+def test_list_ranks_counter_counts_the_rounds_run(n1):
+    """The rounds stop once no link is live: a chain of L rows runs
+    ceil(log2 L) of them, a cycle all ceil(log2 (N+1)), an empty list
+    none; the counter keeps the most over calls."""
+    right, valid = rank_kind_case("chain", n1, 1, n1)
+    counter = torch.zeros(1, dtype=torch.int32)
+    tk.list_ranks(torch.from_numpy(right), torch.from_numpy(valid), counter)
+    assert int(counter) == math.ceil(math.log2(n1)) == tk._n_rounds(n1)
+    part = np.full_like(right, -1)
+    part[0, :2] = [1, -1]  # a list of two rows
+    counter.zero_()
+    tk.list_ranks(torch.from_numpy(part), torch.from_numpy(valid), counter)
+    assert int(counter) == 1
+    cyc, cvalid = rank_kind_case("cycle", n1, 1, n1)
+    tk.list_ranks(torch.from_numpy(cyc), torch.from_numpy(cvalid), counter)
+    assert int(counter) == tk._n_rounds(n1)
+    empty = torch.full((1, n1), -1, dtype=torch.int32)
+    zero = torch.zeros(1, dtype=torch.int32)
+    d = tk.list_ranks(empty, torch.ones(1, n1, dtype=torch.bool), zero)
+    assert int(zero) == 0 and int(d.abs().sum()) == 0
+
+
+def test_list_ranks_variant_by_size():
+    """Staged while a doc's four planes of d and p fit a block."""
+    assert tk.list_ranks_variant(1, H100_SMEM_OPTIN) == "staged"
+    assert tk.list_ranks_variant(2049, H100_SMEM_OPTIN) == "staged"
+    assert (tk.list_ranks_variant(H100_STAGED_ROWS, H100_SMEM_OPTIN)
+            == "staged")
+    assert (tk.list_ranks_variant(H100_STAGED_ROWS + 1, H100_SMEM_OPTIN)
+            == "global")
+    assert tk.list_ranks_variant(16385, H100_SMEM_OPTIN) == "global"
+    assert H100_STAGED_ROWS == 14528
+    assert H100_STAGED_ROWS * tk.LIST_RANKS_ROW_BYTES == H100_SMEM_OPTIN
 
 
 def test_list_ranks_orders_a_known_list():

@@ -277,6 +277,118 @@ def test_sharded_state_vectors_2d_matches_jax():
         assert not np.array_equal(want, half.numpy())
 
 
+# (mesh devices, axes, B, N): one device or two, distinct from the CPU
+# (their tensors are never made: the layout is pure)
+SV_LAYOUTS = {
+    "1d8": ([CPU] * 8, ("docs",), 16, 12),
+    "4x2_one_device": (np.full((4, 2), CPU, dtype=object),
+                       ("docs", "rows"), 8, 16),
+    "two_devices": (["cuda:0", "cuda:1"], ("docs",), 8, 10),
+    "rows_on_two_devices": (np.array([["cuda:0", "cuda:1"]] * 2,
+                                     dtype=object), ("docs", "rows"), 6, 8),
+    "interleaved": (["cuda:0", "cuda:1"] * 2, ("docs",), 8, 5),
+    "zero_docs": (np.full((4, 2), CPU, dtype=object), ("docs", "rows"), 0,
+                  16),
+}
+
+
+@pytest.mark.parametrize("name", list(SV_LAYOUTS))
+def test_state_vector_layout_matches_blocks(name):
+    """K16's host layout: each device's one copy holds the rows of the doc
+    blocks it has a shard of, and each shard's offset, row stride, docs
+    and columns read exactly the block ``state_vector_blocks`` cuts (on a
+    CPU mesh of the same shape); its out_row is its doc block's place in
+    the device's output, which stacks the held blocks in order."""
+    devices, axes, b, n = SV_LAYOUTS[name]
+    mesh = DocMesh(devices, axes)
+    row_axis = axes[1] if len(axes) == 2 else None
+    twin = DocMesh(np.full(np.shape(np.array(devices, dtype=object)), CPU,
+                           dtype=object), axes)
+    h = np.arange(b * n, dtype=np.int32).reshape(b, n)
+    want = tmesh.state_vector_blocks(twin, h, axes[0], row_axis)
+    layout = tmesh.state_vector_layout(mesh, b, n, axes[0], row_axis)
+    grid = np.array(devices, dtype=object).reshape(len(want), -1)
+    seen = set()
+    bd = b // len(want)
+    for dev, (held, shards) in layout.items():
+        assert held == sorted(held)
+        assert {d for d, *_ in shards} == set(held)
+        copy = np.concatenate([h[d * bd:(d + 1) * bd] for d in held])
+        flat = np.concatenate([copy.ravel(), np.zeros(1, np.int32)])
+        for d, r, offset, stride, docs, cols, out_row in shards:
+            assert tmesh._resolve(grid[d, r]) == dev
+            assert (docs, cols) == tuple(want[d][r].shape)
+            assert stride == n and out_row == held.index(d) * bd
+            got = np.lib.stride_tricks.as_strided(
+                flat[offset:], (docs, cols), (4 * stride, 4))
+            np.testing.assert_array_equal(got, want[d][r].numpy())
+            np.testing.assert_array_equal(copy[out_row:out_row + docs],
+                                          h[d * bd:(d + 1) * bd])
+            seen.add((d, r))
+    assert seen == {(d, r) for d in range(len(want))
+                    for r in range(len(want[0]))}
+    distinct = {tmesh._resolve(x) for x in grid.flat}
+    assert list(layout) == list(dict.fromkeys(
+        tmesh._resolve(x) for x in grid.flat))
+    assert len(layout) == len(distinct)
+
+
+@pytest.mark.parametrize("b,n", [(7, 16), (8, 15)])
+def test_state_vector_layout_bad_split_raises(b, n):
+    mesh = DocMesh(np.full((4, 2), CPU, dtype=object), ("docs", "rows"))
+    with pytest.raises(ValueError, match="does not split"):
+        tmesh.state_vector_layout(mesh, b, n, "docs", "rows")
+    row_slot, row_end = sv_case(1, b=b, n=n)
+    with pytest.raises(ValueError, match="does not split"):
+        tmesh.sharded_state_vectors(mesh, 4, "docs", "rows")(row_slot,
+                                                             row_end)
+
+
+def test_state_vector_groups_stack_held_blocks_in_order():
+    """Out rows: a device's doc blocks, stacked in order of ``d``; a doc
+    block's row shards on two devices appear in both."""
+    a, c = torch.device("cuda", 0), torch.device("cuda", 1)
+    groups = tk.state_vector_groups([[c, a], [a, a], [c, c]], [3, 0, 5])
+    assert list(groups) == [c, a]
+    assert groups[c] == ({0: 0, 2: 3}, [(0, 0), (2, 0), (2, 1)])
+    assert groups[a] == ({0: 0, 1: 3}, [(0, 1), (1, 0), (1, 1)])
+
+
+def test_sharded_state_vector_placed_blocks_of_uneven_docs():
+    """Placed blocks on the CPU, doc blocks of 3, 0 and 5 docs over two
+    row shards of unequal width (a view with a row stride among them):
+    the rows of each doc equal the plain version on the whole row."""
+    g = np.random.default_rng(3)
+    sizes, widths, n_slots = [3, 0, 5], [7, 4], 5
+    slot = g.integers(-2, n_slots + 2, size=(8, 11)).astype(np.int32)
+    end = g.integers(-5, 90, size=(8, 11)).astype(np.int32)
+    st, en = torch.from_numpy(slot), torch.from_numpy(end)
+    starts = np.cumsum([0] + sizes)
+    cuts = np.cumsum([0] + widths)
+    slots = [[st[starts[d]:starts[d + 1], cuts[r]:cuts[r + 1]]
+              for r in range(2)] for d in range(3)]
+    ends = [[en[starts[d]:starts[d + 1], cuts[r]:cuts[r + 1]]
+             for r in range(2)] for d in range(3)]
+    assert not slots[0][1].is_contiguous()
+    got = tk.sharded_state_vector(slots, ends, n_slots)
+    want = tk.state_vector_kernel_plain(st, en, n_slots)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    with pytest.raises(ValueError):
+        tk.sharded_state_vector(slots, ends[:2], n_slots)
+    bad = [row[:] for row in ends]
+    bad[2][1] = bad[2][1][:4]
+    with pytest.raises(ValueError, match="must be one"):
+        tk.sharded_state_vector(slots, bad, n_slots)
+    bad[2][1] = ends[2][1].long()
+    with pytest.raises(TypeError):
+        tk.sharded_state_vector(slots, bad, n_slots)
+    cols = [row[:] for row in slots]  # columns apart: the kernel cannot
+    cols[0][0] = slots[0][0].t().contiguous().t()
+    assert cols[0][0].stride(1) != 1
+    with pytest.raises(ValueError, match="unit column"):
+        tk.sharded_state_vector(cols, ends, n_slots)
+
+
 def test_shard_fold_plain_sums_in_int32_and_takes_max():
     g = np.random.default_rng(7)
     parts = [torch.from_numpy(g.integers(-(2**31), 2**31, size=(3, 5),

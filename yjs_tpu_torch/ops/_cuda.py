@@ -55,8 +55,9 @@ _ENTRIES = {
     "ytpu_apply_lanes_sharded_i32": ("apply_lanes", [_vp] + [_int] * 7 + [_vp]),
     "ytpu_apply_lanes_sharded_i16": ("apply_lanes", [_vp] + [_int] * 7 + [_vp]),
     "ytpu_scatter_rows": ("scatter_rows", [_vp] * 7 + [_int] * 4 + [_vp]),
-    "ytpu_list_ranks": ("list_ranks", [_vp] * 4 + [_int] * 3 + [_vp]),
-    "ytpu_state_vector": ("state_vector", [_vp] * 3 + [_int] * 3 + [_vp]),
+    "ytpu_list_ranks": ("list_ranks", [_vp] * 5 + [_int] * 4 + [_vp]),
+    "ytpu_empty_launch": ("list_ranks", [_vp]),
+    "ytpu_state_vector_sharded": ("state_vector", [_vp, _int, _int, _vp]),
     "ytpu_diff_mask": ("diff_mask", [_vp] * 6 + [_int] * 3 + [_vp]),
     "ytpu_scatter_statics": ("statics", [_vp] * 7 + [_int] * 3 + [_vp]),
     "ytpu_batch_step": ("yata", [_vp] * 13 + [_int] * 11 + [_vp]),
@@ -72,6 +73,10 @@ _ENTRIES = {
 FOLD_MAX_PARTS = 64
 # the most shards one anchor-lookup launch takes (kMaxShards in the source)
 LOOKUP_MAX_SHARDS = 64
+# the most shards one state-vector launch takes (kMaxShards in
+# state_vector.cu), and the ints of a shard's row in its descriptor
+SV_MAX_SHARDS = 64
+SV_ROW = 7
 # the most shards one apply-lanes launch sequence or levels launch takes
 # (kMaxShards in apply_lanes.cu and yata.cu), and the ints of a shard's
 # row in their descriptors
@@ -243,14 +248,31 @@ def scatter_rows(idx, new_right, new_deleted, new_starts, right, deleted,
           _p(starts), k, b, n1, s1)
 
 
-def list_ranks(right, valid, scratch, out, b, n1, rounds) -> None:
+def list_ranks(right, valid, scratch, out, counter, b, n1, rounds) -> None:
+    """``scratch``: the ``[b, 4, n1]`` int32 planes of the global variant,
+    None for the staged one; ``counter``: a ``[1]`` int32 or None."""
     _call("ytpu_list_ranks", right.device, _p(right), _p(valid),
-          _p(scratch), _p(out), b, n1, rounds)
+          _opt(scratch), _p(out), _opt(counter), b, n1, rounds,
+          int(scratch is None))
 
 
-def state_vector(row_slot, row_end, sv, b, n, n_slots) -> None:
-    _call("ytpu_state_vector", row_slot.device, _p(row_slot), _p(row_end),
-          _p(sv), b, n, n_slots)
+def empty_launch(device: torch.device) -> None:
+    """One launch of an empty kernel on ``device`` (the floor under a
+    one-launch call)."""
+    _call("ytpu_empty_launch", device)
+
+
+def state_vector(desc: list, device: torch.device, n_slots: int) -> int:
+    """Every shard of ``desc`` (flat rows of :data:`SV_ROW` ints: the
+    ``data_ptr`` of its slot and end blocks, their row stride, docs and
+    columns, its output rows' ``data_ptr`` and row stride; all on
+    ``device``, docs and columns at least 1) reduced in one launch per
+    :data:`SV_MAX_SHARDS` shards; returns the launches."""
+    n = len(desc) // SV_ROW
+    rows = array.array("q", desc)  # read by the entry before it returns
+    _call("ytpu_state_vector_sharded", device, rows.buffer_info()[0], n,
+          n_slots)
+    return rounds(n, SV_MAX_SHARDS)
 
 
 def diff_mask(row_slot, row_clock, row_end, sv, needed, offset, b, n,

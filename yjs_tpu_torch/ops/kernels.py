@@ -62,7 +62,7 @@ length, copies them to ``device`` (the CUDA device unless told
 otherwise), runs the wrapper and copies back.
 
 The doc mesh (:mod:`yjs_tpu_torch.parallel`) runs these kernels per
-shard.  Four wrappers here serve it, each with one launch (or launch
+shard.  Five wrappers here serve it, each with one launch (or launch
 sequence) for all the shards of a device:
 
 - :func:`sharded_apply_lanes` (K14) and :func:`sharded_batch_step_levels`
@@ -74,7 +74,10 @@ sequence) for all the shards of a device:
   MAX (the reference's ``psum`` of those counters, and ``pmax`` over a
   ``rows`` axis);
 - :func:`sharded_anchor_lookup` runs the anchor lookup on each shard's
-  query block (the chunk planner's sharded lookup).
+  query block (the chunk planner's sharded lookup);
+- :func:`sharded_state_vector` (K16) reduces each shard's rows into one
+  output a device, the row shards of a doc block meeting there by
+  ``atomicMax``; :func:`state_vector_kernel` is its one-shard call.
 
 A kernel that cannot be built, loaded or launched, or a CUDA device
 asked for on a host without one, raises :class:`KernelError`.
@@ -395,43 +398,87 @@ def _n_rounds(n1: int) -> int:
     return max(1, math.ceil(math.log2(max(2, n1))))
 
 
-def list_ranks_plain(right_link, valid):
-    """Plain PyTorch version of :func:`list_ranks`."""
-    d = (right_link != NULL).to(torch.int32)
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor wrapped into int32, as XLA's int32 arithmetic
+    wraps."""
+    return ((x + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def list_ranks_plain(right_link, valid, counter=None):
+    """Plain PyTorch version of :func:`list_ranks`, with JAX's gather
+    rule: a negative link other than NULL counts from the end, a link
+    still outside ``[0, N+1)`` reads ``INT32_MIN`` for d and p, and d
+    adds with int32 wrap-around.  The rounds stop once no p is live (the
+    rest change nothing); ``counter`` (``[1]`` int32) takes the most
+    rounds run, as the kernel's does."""
+    n1 = right_link.shape[1]
+    live = right_link != NULL
+    d = live.to(torch.int32)
     p = right_link
-    for _ in range(_n_rounds(right_link.shape[1])):
+    ran = 0
+    for _ in range(_n_rounds(n1)):
+        if not bool(live.any()):
+            break
+        idx = torch.where(p < 0, p + n1, p)
+        inb = live & (idx >= 0) & (idx < n1)
+        safe = torch.where(inb, idx, torch.zeros_like(idx)).long()
+        fill = torch.full_like(p, INT32_MIN)
+        gd = torch.where(inb, torch.gather(d, 1, safe), fill)
+        gp = torch.where(inb, torch.gather(p, 1, safe), fill)
+        d = torch.where(live, _wrap_i32(d.long() + gd.long()), d)
+        p = torch.where(live, gp, torch.full_like(p, NULL))
         live = p != NULL
-        safe_p = torch.where(live, p, torch.zeros_like(p)).long()
-        d = d + torch.where(
-            live, torch.gather(d, 1, safe_p), torch.zeros_like(d)
-        )
-        p = torch.where(live, torch.gather(p, 1, safe_p), torch.full_like(p, NULL))
+        ran += 1
+    if counter is not None:
+        counter.clamp_(min=ran)
     return torch.where(valid, d, torch.full_like(d, NULL))
 
 
+# where a K8 block keeps its doc's four planes of d and p (csrc/list_ranks.cu):
+# "staged" in shared memory, LIST_RANKS_ROW_BYTES a row; "global" in a
+# [b, 4, N+1] int32 scratch, for docs whose planes do not fit a block
+LIST_RANKS_ROW_BYTES = 16
+
+
+def list_ranks_variant(n1: int, limit: int) -> str:
+    """K8's variant for docs of ``n1`` (N+1) rows on a card whose blocks
+    may opt into ``limit`` bytes of shared memory: "staged" when a doc's
+    planes fit, else "global"."""
+    return "staged" if LIST_RANKS_ROW_BYTES * n1 <= limit else "global"
+
+
 @profiled("list_ranks")
-def list_ranks(right_link, valid):
+def list_ranks(right_link, valid, counter=None):
     """Document order from right links by pointer doubling: d[i] =
     distance to the list tail; sorting valid rows by descending d gives
     the order.
 
     right_link: [B, N+1] i32 (NULL or a row of the same doc); valid:
     [B, N+1] bool host-known membership.  Returns d with -1 on invalid
-    rows."""
-    if not _on_cuda(right_link, valid):
-        return list_ranks_plain(right_link, valid)
+    rows.  ``counter`` (optional ``[1]`` int32 on the same device) takes
+    the most rounds any doc ran.  On CUDA the variant comes from
+    :func:`list_ranks_variant` (``last_variant["list_ranks"]``)."""
+    extra = () if counter is None else (counter,)
+    if not _on_cuda(right_link, valid, *extra):
+        return list_ranks_plain(right_link, valid, counter)
     _check(right_link, "right_link", (torch.int32,), 2)
     _check(valid, "valid", (torch.bool,), 2)
     if valid.shape != right_link.shape:
         raise ValueError("valid must match right_link's shape")
+    if counter is not None:
+        _check(counter, "counter", (torch.int32,), 1)
+        if counter.shape != (1,):
+            raise ValueError("counter must be [1]")
     b, n1 = right_link.shape
     out = torch.empty_like(right_link)
-    scratch = torch.empty(
-        (2, 2, b, n1), dtype=torch.int32, device=right_link.device
-    )
-    if b:
-        _cuda.list_ranks(right_link, valid, scratch, out, b, n1, _n_rounds(n1))
+    if b and n1:
+        variant = list_ranks_variant(n1, _cuda.smem_optin(right_link.device))
+        scratch = None if variant == "staged" else torch.empty(
+            (b, 4, n1), dtype=torch.int32, device=right_link.device)
+        _cuda.list_ranks(right_link, valid, scratch, out, counter, b, n1,
+                         _n_rounds(n1))
         launches["list_ranks"] += 1
+        last_variant["list_ranks"] = variant
     return out
 
 
@@ -467,7 +514,8 @@ def state_vector_kernel(row_slot, row_end, n_slots: int):
 
     row_slot: [B, N] i32 (NULL for unused rows), row_end: [B, N] i32;
     rows with a slot outside ``[0, n_slots)`` are dropped.  Returns
-    ``[B, n_slots]`` i32."""
+    ``[B, n_slots]`` i32.  On CUDA it is the one-shard launch of
+    :func:`sharded_state_vector`'s kernel."""
     if not _on_cuda(row_slot, row_end):
         return state_vector_kernel_plain(row_slot, row_end, n_slots)
     _check(row_slot, "row_slot", (torch.int32,), 2)
@@ -477,8 +525,9 @@ def state_vector_kernel(row_slot, row_end, n_slots: int):
     b, n = row_slot.shape
     sv = torch.zeros((b, n_slots), dtype=torch.int32, device=row_slot.device)
     if b and n and n_slots:
-        _cuda.state_vector(row_slot, row_end, sv, b, n, n_slots)
-        launches["state_vector"] += 1
+        launches["state_vector"] += _cuda.state_vector(
+            [row_slot.data_ptr(), row_end.data_ptr(), n, b, n, sv.data_ptr(),
+             n_slots], row_slot.device, n_slots)
     return sv
 
 
@@ -494,9 +543,7 @@ def diff_mask_kernel_plain(row_slot, row_clock, row_end, sv):
     )
     remote = torch.where(inb, remote, torch.full_like(remote, INT32_MIN))
     needed = (row_slot >= 0) & (row_end > remote)
-    diff = remote.long() - row_clock.long()
-    diff = (diff + 2**31) % 2**32 - 2**31  # int32 wrap-around
-    offset = torch.clamp(diff, min=0).to(torch.int32)
+    offset = torch.clamp(_wrap_i32(remote.long() - row_clock.long()), min=0)
     return needed, torch.where(needed, offset, torch.zeros_like(offset))
 
 
@@ -568,11 +615,11 @@ YATA_RESERVED_SMEM = 1024
 # (PERF.md, section 6): staged docs at 19-25 an SM ran 6-14% faster than
 # unstaged, at 11-15 no faster, at 6-13 up to 8x slower
 YATA_MIN_DOCS_SM = 16
-# the variant each YATA wrapper's last CUDA launch took (chip_smoke.py and
-# the card's tests read it)
+# the variant each YATA wrapper's and K8's last CUDA launch took
+# (chip_smoke.py and the card's tests read it)
 last_variant = dict.fromkeys(("batch_step", "batch_step_levels",
                               "batch_step_levels_shared",
-                              "sharded_batch_step"))
+                              "sharded_batch_step", "list_ranks"))
 
 
 def yata_layout(n1: int, s1: int, w: int,
@@ -1549,6 +1596,114 @@ def sharded_anchor_lookup(hays, q_blocks):
         else:
             raise _unsupported(dev)
     return out
+
+
+def state_vector_groups(devices, docs) -> dict:
+    """The shards of a K16 call by device.  ``devices[d][r]``: the device
+    of doc block ``d``'s row shard ``r``; ``docs[d]``: the block's docs.
+    Returns ``{device: (held, shards)}``, the devices in the order they
+    first appear: ``held`` maps each doc block with a row shard there, in
+    order of ``d``, to its first row in the device's output (the held
+    blocks' docs stacked in that order); ``shards`` lists the ``(d, r)``
+    there."""
+    flat = [(d, r) for d, row in enumerate(devices) for r in range(len(row))]
+    groups = {}
+    for dev, ks in _device_groups([devices[d][r] for d, r in flat]).items():
+        shards = [flat[k] for k in ks]
+        held, row0 = {}, 0
+        for d in sorted({d for d, _r in shards}):
+            held[d], row0 = row0, row0 + docs[d]
+        groups[dev] = (held, shards)
+    return groups
+
+
+def _sv_shard(d: int, r: int, slot, end, dev, docs: int) -> None:
+    """Check shard ``(d, r)``'s slot and end blocks (``slot`` lies on
+    ``dev``, its group's device): int32 ``[docs, cols]`` of one shape on
+    ``dev``, with unit column strides and one row stride, which the
+    kernel reads them by."""
+    st = slot.stride()
+    if (slot.dtype is torch.int32 and end.dtype is torch.int32
+            and end.device == dev and len(st) == 2
+            and slot.shape == end.shape and slot.shape[0] == docs
+            and st == end.stride() and st[1] == 1):
+        return
+    for name, t in (("row_slot", slot), ("row_end", end)):
+        if t.device != dev:
+            raise ValueError(f"shard ({d}, {r}): {name} on {t.device}, its "
+                             f"doc block's output on {dev}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"shard ({d}, {r}): {name}: dtype {t.dtype} not "
+                            "int32")
+    raise ValueError(
+        f"shard ({d}, {r}): row_slot {tuple(slot.shape)} and row_end "
+        f"{tuple(end.shape)} must be one [{docs}, cols], with unit column "
+        "strides and one row stride")
+
+
+def sharded_state_vector(slots, ends, n_slots: int):
+    """K16, the state vectors of a doc batch split into doc blocks and
+    their row shards: ``slots[d][r]`` and ``ends[d][r]`` are doc block
+    ``d``'s column block ``r``, int32 ``[docs_d, cols_r]`` on the shard's
+    device, read in place: their rows may lie apart (views of wider rows)
+    but not their columns.  Returns ``[sum docs_d, n_slots]``
+    int32 on the device of ``slots[0][0]``: each doc's per-slot maximum
+    end over all its row shards, floored at 0.
+
+    The shards of one device write, in any order, into one zero-filled
+    output for the doc blocks it holds (:func:`state_vector_groups`):
+    on CUDA by ``atomicMax`` in one launch (a round per
+    :data:`_cuda.SV_MAX_SHARDS` shards with rows, counted in
+    ``launches["sharded_state_vectors"]``), on the CPU by the plain
+    version.  Starting from 0 that is JAX's ``max(sv, 0)`` and its
+    ``pmax`` over the row shards.  Only where a doc block's row shards lie
+    on distinct devices do their partials fold by :func:`shard_fold`, and
+    only with more than one device do the blocks gather onto the first."""
+    if len(slots) != len(ends) or not slots:
+        raise ValueError("one end block per slot block, at least one")
+    docs = []
+    for d, (srow, erow) in enumerate(zip(slots, ends)):
+        if len(srow) != len(erow) or not srow:
+            raise ValueError(f"doc block {d}: one end block per slot block")
+        if srow[0].dim() != 2:
+            raise ValueError(f"shard ({d}, 0): row_slot must be [docs, cols]")
+        docs.append(srow[0].shape[0])
+    groups = state_vector_groups([[t.device for t in row] for row in slots],
+                                 docs)
+    parts = [[] for _ in slots]
+    for dev, (held, shards) in groups.items():
+        out = torch.zeros((sum(docs[d] for d in held), n_slots),
+                          dtype=torch.int32, device=dev)
+        if dev.type == "cuda":
+            desc = []
+            base, row_bytes = out.data_ptr(), 4 * n_slots
+            for d, r in shards:
+                s, e = slots[d][r], ends[d][r]
+                _sv_shard(d, r, s, e, dev, docs[d])
+                cols = s.shape[1]
+                if docs[d] and cols and n_slots:
+                    desc += (s.data_ptr(), e.data_ptr(), s.stride(0),
+                             docs[d], cols, base + row_bytes * held[d],
+                             n_slots)
+            if desc:
+                launches["sharded_state_vectors"] += _cuda.state_vector(
+                    desc, dev, n_slots)
+        elif dev.type == "cpu":
+            for d, r in shards:
+                s, e = slots[d][r], ends[d][r]
+                _sv_shard(d, r, s, e, dev, docs[d])
+                rows = out[held[d] : held[d] + docs[d]]
+                torch.maximum(rows, state_vector_kernel_plain(s, e, n_slots),
+                              out=rows)
+        else:
+            raise _unsupported(dev)
+        if len(groups) == 1:
+            return out
+        for d, row0 in held.items():
+            parts[d].append(out[row0 : row0 + docs[d]])
+    first = slots[0][0].device
+    blocks = [p[0] if len(p) == 1 else shard_fold(p, "max") for p in parts]
+    return torch.cat([b.to(first) for b in blocks])
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,11 @@ The PyTorch port of ``yjs_tpu/parallel/mesh.py``.  Docs are independent,
 so the mesh shards the doc-batch axis: shard ``s`` of a meshed engine
 holds docs ``[s * B_loc, (s + 1) * B_loc)`` in tensors on its device and
 runs the kernels on them there.  The only cross-shard traffic is the
-sum of the progress counters (the reference's ``psum``) and, on a
-``("docs", "rows")`` mesh, the maximum of the state vectors over the row
-shards (its ``pmax``); both are :func:`..ops.kernels.shard_fold`.
+sum of the progress counters (the reference's ``psum``, by
+:func:`..ops.kernels.shard_fold`) and, on a ``("docs", "rows")`` mesh,
+the maximum of the state vectors over the row shards (its ``pmax``): the
+row shards on one device meet in one output by ``atomicMax``, and only
+partials on distinct devices go through the fold.
 
 The reference's mesh is single-controller: one process drives every
 device through ``shard_map``.  So is this one.  A :class:`DocMesh` is an
@@ -27,8 +29,8 @@ Axes:
 Each ``sharded_*`` factory returns a callable, wrapped by ``profiled``
 under the reference's name.  The apply (K14) and level (K15) steps make
 one launch (or launch sequence) a device for all its shards, whose
-tensors travel to the kernel by value; the state vectors (K16) one a
-shard.  Each counts its launches in ``kernels.launches``.  With
+tensors travel to the kernel by value, and so do the state vectors (K16).
+Each counts its launches in ``kernels.launches``.  With
 ``plain=True`` the callable runs the kernels' plain PyTorch versions
 instead, on whatever device the tensors lie.
 """
@@ -340,38 +342,110 @@ def state_vector_blocks(mesh: DocMesh, x, axis: str = "docs",
     ]
 
 
+def state_vector_layout(mesh: DocMesh, b: int, n: int, axis: str = "docs",
+                        row_axis: str | None = None) -> dict:
+    """Where :func:`sharded_state_vectors` puts host ``[B, N]`` arrays:
+    ``{device: (held, shards)}``.  Each device gets one copy of the doc
+    rows it holds, ``held`` (doc blocks, in order, their rows stacked);
+    each of its shards is a tuple ``(d, r, offset, row_stride, docs, cols,
+    out_row)``: doc block ``d``'s column block ``r`` starts at int32
+    ``offset`` of that copy (of either column), its rows ``row_stride``
+    apart, and its state vectors go to the device's output from row
+    ``out_row`` on (:func:`..ops.kernels.state_vector_groups`).  The
+    blocks are those :func:`state_vector_blocks` cuts; a ``[B, N]`` that
+    does not split over the mesh raises ``ValueError``."""
+    from ..ops import kernels
+
+    grid = _grid(mesh, axis, row_axis)
+    if b % len(grid) or n % len(grid[0]):
+        raise ValueError(
+            f"[{b}, {n}] does not split over a {len(grid)} x {len(grid[0])} "
+            "mesh"
+        )
+    bd, nr = b // len(grid), n // len(grid[0])
+    groups = kernels.state_vector_groups(grid, [bd] * len(grid))
+    return {
+        dev: (list(held), [(d, r, held[d] * n + r * nr, n, bd, nr, held[d])
+                           for d, r in shards])
+        for dev, (held, shards) in groups.items()
+    }
+
+
+def _host_blocks(mesh: DocMesh, row_slot, row_end, axis: str,
+                 row_axis: str | None) -> tuple[list, list]:
+    """Host ``[B, N]`` arrays as ``blocks[d][r]`` views of one copy a
+    device of the doc rows it holds (:func:`state_vector_layout`): on
+    CUDA one pinned buffer of both columns and one ``non_blocking`` copy;
+    on the CPU views of the arrays where the held rows are consecutive."""
+    h = [torch.from_numpy(np.ascontiguousarray(x, np.int32))
+         for x in (row_slot, row_end)]
+    if h[0].dim() != 2 or h[0].shape != h[1].shape:
+        raise ValueError("row_slot and row_end must be equal [B, N]")
+    b, n = h[0].shape
+    layout = state_vector_layout(mesh, b, n, axis, row_axis)
+    grid = _grid(mesh, axis, row_axis)
+    bd = b // len(grid)
+    slots = [[None] * len(row) for row in grid]
+    ends = [[None] * len(row) for row in grid]
+    for dev, (held, shards) in layout.items():
+        lo, hi = held[0] * bd, (held[-1] + 1) * bd
+        if dev.type == "cpu" and hi - lo == len(held) * bd:
+            cols = [x[lo:hi] for x in h]
+        else:
+            # torch's copy fills the pinned buffer on several threads
+            host = torch.empty((2, len(held) * bd, n), dtype=torch.int32,
+                               pin_memory=dev.type == "cuda")
+            for k, d in enumerate(held):
+                for c in range(2):
+                    host[c, k * bd : (k + 1) * bd].copy_(
+                        h[c][d * bd : (d + 1) * bd])
+            both = host if dev.type == "cpu" else host.to(dev,
+                                                          non_blocking=True)
+            cols = [both[0], both[1]]
+        for d, r, offset, stride, docs, width, _row in shards:
+            for col, out in zip(cols, (slots, ends)):
+                out[d][r] = col.as_strided((docs, width), (stride, 1),
+                                           col.storage_offset() + offset)
+    return slots, ends
+
+
 def sharded_state_vectors(mesh: DocMesh, n_slots: int, axis: str = "docs",
                           row_axis: str | None = None, plain: bool = False):
     """State vectors over a sharded doc batch (K16): ``fn(row_slot,
     row_end) -> [B, n_slots]`` int32 on the mesh's first device, from
     host ``[B, N]`` arrays split over ``axis`` (and, with ``row_axis``,
     their rows over ``row_axis``), or from their placed
-    :func:`state_vector_blocks`.  Each shard runs
-    :func:`kernels.state_vector_kernel` on its block; on a 2-D mesh the
-    row shards' partials of one doc block fold by MAX onto the first of
-    them (the reference's ``pmax``, the segment max of
-    StructStore.getStateVector, StructStore.js:49-56)."""
+    :func:`state_vector_blocks`.  The shards of a device reduce into one
+    output in one launch (:func:`..ops.kernels.sharded_state_vector`;
+    host arrays reach each device as one copy of the rows it holds,
+    :func:`state_vector_layout`): on a 2-D mesh the row shards' maxima
+    meet there, the reference's ``pmax``, the segment max of
+    StructStore.getStateVector (StructStore.js:49-56).  With ``plain``,
+    each shard runs :func:`..ops.kernels.state_vector_kernel_plain` on its
+    block and the row shards of a doc block fold by
+    :func:`..ops.kernels.shard_fold_plain` onto the first of them."""
     from ..ops import kernels
 
-    sv = (kernels.state_vector_kernel_plain if plain
-          else kernels.state_vector_kernel)
-    fold = kernels.shard_fold_plain if plain else kernels.shard_fold
     first = _grid(mesh, axis, row_axis)[0][0]
 
     def run(row_slot, row_end):
-        if not isinstance(row_slot, (list, tuple)):
+        placed = isinstance(row_slot, (list, tuple))
+        if not plain:
+            if not placed:
+                row_slot, row_end = _host_blocks(mesh, row_slot, row_end,
+                                                 axis, row_axis)
+            return kernels.sharded_state_vector(row_slot, row_end, n_slots)
+        if not placed:
             if np.shape(row_slot) != np.shape(row_end):
                 raise ValueError("row_slot and row_end must be equal [B, N]")
             row_slot = state_vector_blocks(mesh, row_slot, axis, row_axis)
             row_end = state_vector_blocks(mesh, row_end, axis, row_axis)
         out = []
         for slot_r, end_r in zip(row_slot, row_end):
-            parts = []
-            for slot_s, end_s in zip(slot_r, end_r):
-                parts.append(sv(slot_s, end_s, n_slots))
-                if not plain and slot_s.is_cuda and slot_s.numel():
-                    kernels.launches["sharded_state_vectors"] += 1
-            out.append(parts[0] if len(parts) == 1 else fold(parts, "max"))
+            parts = [kernels.state_vector_kernel_plain(s, e, n_slots)
+                     for s, e in zip(slot_r, end_r)]
+            out.append(parts[0] if len(parts) == 1
+                       else kernels.shard_fold_plain(parts, "max"))
         return torch.cat([o.to(first) for o in out])
 
     return run if plain else profiled("sharded_state_vectors")(run)
