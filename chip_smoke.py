@@ -134,10 +134,13 @@ script exits non-zero:
    and ``host_us`` (one call's host time by ``time.perf_counter`` over
    1000 calls, split into the profiler, the checks and allocation, the
    device guard and stream lookup, and the ctypes call with its launch),
-   K14's and K15's rows add ``host_us`` too (K15's on an empty schedule
-   of the same shapes, so that the calls do no YATA work), the devices
-   their shards lie on, ``launches_a_call`` (the wrappers' launch
-   counts over one call: one launch sequence a device, checked) and
+   K1's and K2's rows add ``host_us`` too, K14's and K15's rows add
+   ``host_us`` (K15's on an empty schedule of the same shapes, so that
+   the calls do no YATA work) and the devices their shards lie on, and
+   K1's and K14's rows add the ``variant`` that ran ("staged": each lane
+   block scans its section's counts in shared memory), and K1's, K14's
+   and K15's rows add ``launches_a_call`` (the wrappers'
+   launch counts over one call: one launch a device, checked) and
    ``kernels_a_call`` (the kernels one call launches, by name, from
    ``torch.profiler``, which may lose an event: checked to be no more
    than one a device);
@@ -1749,6 +1752,7 @@ def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
         "shape": f"shards={len(parts)} B_loc={b_loc} N+1={n1} S+1={s1} "
                  f"lanes={tuple(lanes.shape)} {lanes.dtype}",
         "launches": m_launches["sharded_apply_plan"], "max_abs_err": err,
+        "variant": K.last_variant["sharded_apply_plan"],
         "devices": n_devices,
         "kernels_a_call": kernels_a_call(lambda: fn(base, parts)),
         "ms": cuda_ms(lambda: fn(base, parts)),
@@ -1820,21 +1824,15 @@ def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
         "ns_per_dep_load": ms * 1e6 / max(1, chain), **info,
     })
 
-    # one launch sequence a device, whatever the shards on it: the
+    # one launch a device, whatever the shards on it: the
     # wrappers' counts over one more call are the proof (and no shard went
     # through a one-shard wrapper); a trace may lose a kernel's event but
     # never adds one, so the trace's counts only bound ours from above
     for row, call, ours in (
-            (rows[0], lambda: fn_k14(base, parts),
-             ("scan_counts", "apply_dense_heads_dels", "apply_sparse")),
+            (rows[0], lambda: fn_k14(base, parts), ("apply_lanes_kernel",)),
             (rows[1], lambda: (restore(), launch()),
              ("batch_step_levels_kernel",))):
-        before = dict(K.launches)
-        call()
-        torch.cuda.synchronize()
-        grew = {k: v - before.get(k, 0) for k, v in K.launches.items()
-                if v != before.get(k, 0)}
-        row["launches_a_call"] = grew
+        grew = row["launches_a_call"] = launches_a_call(K, call)
         check(grew == {row["name"]: n_devices},
               f"{row['name']}: launches {grew} in one call on {n_devices} "
               "device(s)")
@@ -2103,6 +2101,15 @@ def device_ms(fn, n: int = TIMED_LAUNCHES, restore=None):
         and not (restore is not None and e.key.startswith("Memcpy"))
     )
     return us / 1e3 / n if us > 0 else None
+
+
+def launches_a_call(K, fn) -> dict:
+    """The wrappers' launch counts that grow over one call of ``fn()``."""
+    before = dict(K.launches)
+    fn()
+    torch.cuda.synchronize()
+    return {k: v - before.get(k, 0) for k, v in K.launches.items()
+            if v != before.get(k, 0)}
 
 
 def kernels_a_call(fn, restore=None, n: int = 5) -> dict | None:
@@ -2666,8 +2673,12 @@ def kernel_phase(seen: dict, launches: dict, pseen: dict,
     ref = K.apply_lanes_plain(fresh(), lanes, *widths)
     err = max(max_abs_err(g, r) for g, r in zip(got, ref))
     base = fresh()
-    ms = cuda_ms(lambda: K.apply_lanes(base, lanes, *widths))
-    dev_ms = device_ms(lambda: K.apply_lanes(base, lanes, *widths))
+
+    def k1():
+        return K.apply_lanes(base, lanes, *widths)
+
+    ms = cuda_ms(k1)
+    dev_ms = device_ms(k1)
     plain_ms = cuda_ms(lambda: K.apply_lanes_plain(base, lanes, *widths))
     nbytes = apply_lanes_bytes(lanes, b, widths, n1, s1)
     rows.append({
@@ -2676,10 +2687,23 @@ def kernel_phase(seen: dict, launches: dict, pseen: dict,
         "replaces": "yjs_tpu/ops/kernels.py:406",
         "shape": f"B={b} N+1={n1} S+1={s1} lanes={lanes.numel()} {lanes.dtype}",
         "launches": launches["apply_lanes"], "max_abs_err": err,
+        "variant": K.last_variant["apply_lanes"],
+        "launches_a_call": launches_a_call(K, k1),
+        "kernels_a_call": kernels_a_call(k1),
         "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "host_us": host_split(k1),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,
     })
+    # one launch a call: the wrapper's count over one call is the proof; a
+    # trace may lose a kernel's event but never adds one
+    row = rows[-1]
+    check(row["launches_a_call"] == {"apply_lanes": 1},
+          f"apply_lanes: launches {row['launches_a_call']} in one call")
+    traced = {k: v for k, v in (row["kernels_a_call"] or {}).items()
+              if k.startswith("apply_lanes_kernel")}
+    check(all(v <= 1 for v in traced.values()),
+          f"apply_lanes: the trace shows {traced} in one call")
 
     # scatter_rows at the compaction's shapes
     *tables, idx, new_right, new_deleted, new_starts = seen["scatter_rows"]
@@ -2693,6 +2717,7 @@ def kernel_phase(seen: dict, launches: dict, pseen: dict,
     ms = cuda_ms(lambda: K.scatter_rows(*base, *new))
     dev_ms = device_ms(lambda: K.scatter_rows(*base, *new))
     plain_ms = cuda_ms(lambda: K.scatter_rows_plain(*base, *new))
+    split = host_split(lambda: K.scatter_rows(*base, *new))
     idx64 = idx.long()
 
     def library():
@@ -2711,6 +2736,7 @@ def kernel_phase(seen: dict, launches: dict, pseen: dict,
         "shape": f"k={k} B={b} N+1={n1} S+1={s1}",
         "launches": launches["scatter_rows"], "max_abs_err": err,
         "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "host_us": split,
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": lib_ms,
     })

@@ -249,6 +249,273 @@ def test_scatter_rows_kernel_matches_plain(cuda_device, shape):
         assert torch.equal(r, o)
 
 
+def without_sections(case, drop):
+    """``case`` (from :func:`apply_case`) with the sections named in
+    ``drop`` ("dense", "sparse", "heads", "dels") emptied: their counts
+    zeroed and their lanes cut, so their widths are 0."""
+    tables, lanes, widths = case
+    b = tables[0].shape[0]
+    names = ("dense", "sparse", "heads", "dels")
+    per = (1, 2, 2, 1)  # lanes a section's entry takes
+    counts = lanes[: 4 * b].reshape(4, b).copy()
+    parts, o, out_w = [], 4 * b, []
+    for v, (name, w) in enumerate(zip(names, widths)):
+        sec = lanes[o : o + per[v] * w]
+        o += per[v] * w
+        if name in drop:
+            counts[v] = 0
+            out_w.append(0)
+        else:
+            parts.append(sec)
+            out_w.append(w)
+    lanes = np.concatenate([counts.reshape(-1), *parts]).astype(lanes.dtype)
+    return tables, lanes, tuple(out_w)
+
+
+def overlap_case(seed: int, b: int, n1: int, s1: int, dtype):
+    """A K1 case whose sparse lanes rewrite rows that its dense lanes
+    write in the same doc, with other values: the reference's sequential
+    scatters leave the sparse value there."""
+    g = np.random.default_rng(seed)
+    cap = n1 - 1
+    tables = (np.full((b, n1), NULL, np.int32), np.zeros((b, n1), bool),
+              np.full((b, s1), NULL, np.int32))
+    cnt_dn = g.integers(4, cap, size=b)
+    cnt_sp = np.minimum(cnt_dn, 3)
+    dense = [g.integers(0, 100, size=c) for c in cnt_dn]
+    sp_r = [g.choice(c, size=k, replace=False) for c, k in zip(cnt_dn, cnt_sp)]
+    sp_v = [g.integers(1000, 2000, size=k) for k in cnt_sp]
+    k_dn, k_sp = int(cnt_dn.sum()), int(cnt_sp.sum())
+    lanes = np.concatenate([
+        cnt_dn, cnt_sp, np.zeros(2 * b, np.int64), *dense, *sp_r, *sp_v,
+    ]).astype(dtype)
+    want = [(d, int(r), int(v)) for d in range(b)
+            for r, v in zip(sp_r[d], sp_v[d])]
+    return tables, lanes, (k_dn, k_sp, 0, 0), want
+
+
+def _apply_both(device, case, counter: bool = False):
+    """K1 and its plain version on fresh copies of ``case``'s tables;
+    returns ``(ref, got)`` (with the ``[2]`` counters when asked)."""
+    tables, lanes, widths = case
+    lanes_d = torch.from_numpy(lanes).to(device)
+    c_ref = torch.zeros(2, dtype=torch.int32, device=device) if counter else None
+    c_got = torch.zeros(2, dtype=torch.int32, device=device) if counter else None
+    ref = kernels.apply_lanes_plain(_torch(tables, device), lanes_d, *widths,
+                                    counter=c_ref)
+    got = kernels.apply_lanes(_torch(tables, device), lanes_d, *widths,
+                              counter=c_got)
+    if counter:
+        return (*ref, c_ref), (*got, c_got)
+    return ref, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("shape", [(1, 65, 9), (7, 129, 17), (300, 1025, 9)])
+def test_apply_lanes_sparse_wins_over_dense(cuda_device, hang_guard, shape, dtype):
+    """Dense and sparse lanes write the same rows of one doc: the one
+    launch leaves the sparse value, as the plain version's second scatter
+    does."""
+    tables, lanes, widths, want = overlap_case(41 + shape[0], *shape, dtype)
+    ref, got = _apply_both(cuda_device, (tables, lanes, widths))
+    torch.cuda.synchronize()
+    for r, o in zip(ref, got):
+        assert torch.equal(r, o)
+    right = got[0].cpu().numpy()
+    assert all(right[d, r] == v for d, r, v in want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("drop", [("sparse",), ("dense",), ("dense", "sparse"),
+                                  ("heads", "dels"),
+                                  ("dense", "sparse", "heads", "dels")])
+def test_apply_lanes_empty_sections(cuda_device, hang_guard, drop, dtype):
+    """Sections of width 0 (no sparse lanes, no dense lanes, neither, no
+    heads or deletes, none at all): tables and counters equal the plain
+    version's, one launch a call."""
+    case = without_sections(apply_case(23, 64, 129, 17, dtype), drop)
+    assert all(w == 0 for w, name in zip(case[2], ("dense", "sparse",
+                                                   "heads", "dels"))
+               if name in drop)
+    before = kernels.launches["apply_lanes"]
+    ref, got = _apply_both(cuda_device, case, counter=True)
+    torch.cuda.synchronize()
+    assert kernels.launches["apply_lanes"] == before + 1
+    for r, o in zip(ref, got):
+        assert torch.equal(r, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("shape", [
+    (1, 9, 3), (1, 4097, 9), ("staged_max", 17, 5), ("staged_max+1", 17, 5),
+    (65536, 17, 5)])
+def test_apply_lanes_doc_count_edges(cuda_device, hang_guard, shape, dtype):
+    """B = 1 (one doc, the scan a single tile), the most docs the
+    "staged" variant takes on this card and one more ("global"), and
+    B = 65,536 (eight scan tiles a count vector), with counters."""
+    b, n1, s1 = shape
+    limit = kernels._cuda.smem_optin(torch.device("cuda", 0))
+    top = kernels.apply_stage_max(limit)
+    b = {"staged_max": top, "staged_max+1": top + 1}.get(b, b)
+    ref, got = _apply_both(cuda_device, apply_case(31 + b, b, n1, s1, dtype),
+                           counter=True)
+    torch.cuda.synchronize()
+    assert (kernels.last_variant["apply_lanes"]
+            == kernels.apply_variant(b, limit))
+    for r, o in zip(ref, got):
+        assert torch.equal(r, o)
+
+
+@pytest.mark.cuda
+def test_apply_lanes_counters_reset_between_calls(cuda_device, hang_guard):
+    """200 calls back to back on one stream, and so on one scratch, of
+    cases with other grid sizes in turn: each equals the plain version,
+    so each launch found the counters zero."""
+    cases = [apply_case(51 + i, b, n1, 9, dt) for i, (b, n1, dt) in enumerate(
+        ((3, 65, np.int32), (64, 1025, np.int16), (17, 257, np.int32)))]
+    refs = []
+    for tables, lanes, widths in cases:
+        lanes_d = torch.from_numpy(lanes).to(cuda_device)
+        refs.append(kernels.apply_lanes_plain(_torch(tables, cuda_device),
+                                              lanes_d, *widths))
+    inputs = [(_torch(t, cuda_device), torch.from_numpy(l).to(cuda_device), w)
+              for t, l, w in cases]
+    key = (cuda_device if cuda_device.index is not None
+           else torch.device("cuda", torch.cuda.current_device()))
+    for i in range(200):
+        tables, lanes_d, widths = inputs[i % 3]
+        fresh = tuple(t.clone() for t in tables)
+        got = kernels.apply_lanes(fresh, lanes_d, *widths)
+        torch.cuda.synchronize()
+        for r, o in zip(refs[i % 3], got):
+            assert torch.equal(r, o), f"call {i}"
+    scratch = [v for (dev, _s), v in kernels._apply_scratch_by_stream.items()
+               if dev == key]
+    assert scratch and all(
+        not bool(v[:kernels._cuda.APPLY_SYNC_INTS].any()) for v in scratch)
+
+
+@pytest.mark.cuda
+def test_apply_lanes_two_streams_own_scratch(cuda_device, hang_guard):
+    """K1 enqueued on two streams in turn, neither waiting on the other:
+    each stream keeps its own scratch, and every result equals the plain
+    version."""
+    case = apply_case(61, 256, 1025, 9, np.int16)
+    tables, lanes, widths = case
+    lanes_d = torch.from_numpy(lanes).to(cuda_device)
+    ref = kernels.apply_lanes_plain(_torch(tables, cuda_device), lanes_d,
+                                    *widths)
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    outs = {0: [], 1: []}
+    made = {}
+    torch.cuda.synchronize()
+    for i in range(20):
+        k = i % 2
+        with torch.cuda.stream(streams[k]):
+            fresh = tuple(t.clone() for t in _torch(tables, cuda_device))
+            outs[k].append(kernels.apply_lanes(fresh, lanes_d, *widths))
+            dev = lanes_d.device
+            made[k] = kernels._apply_scratch_by_stream[
+                (dev, streams[k].cuda_stream)]
+    torch.cuda.synchronize()
+    assert made[0] is not made[1]
+    assert made[0].data_ptr() != made[1].data_ptr()
+    for k in (0, 1):
+        for got in outs[k]:
+            for r, o in zip(ref, got):
+                assert torch.equal(r, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("n_shards", [1, 4, 16, 17, 33, "global"])
+def test_sharded_apply_shard_counts(cuda_device, hang_guard, n_shards, dtype):
+    """K14 over 1, 4, 16, 17 and 33 shards of one card, and over four
+    shards whose largest takes the "global" variant, with counters:
+    tables and counters equal the plain version's, one launch per 16
+    shards."""
+    limit = kernels._cuda.smem_optin(torch.device("cuda", 0))
+    if n_shards == "global":
+        sizes = [5, kernels.apply_stage_max(limit) + 1, 0, 3]
+        n_shards = len(sizes)
+    else:
+        sizes = [3 + (s % 5) for s in range(n_shards)]
+    tables, lanes, widths = sharded_apply_case(97 + n_shards, sizes, 65, 9,
+                                               dtype)
+    rows = [torch.from_numpy(r).to(cuda_device) for r in lanes]
+    ref = [_torch(t, cuda_device) for t in tables]
+    got = [_torch(t, cuda_device) for t in tables]
+    ref_c = list(torch.zeros((n_shards, 2), dtype=torch.int32,
+                             device=cuda_device))
+    got_c = list(torch.zeros((n_shards, 2), dtype=torch.int32,
+                             device=cuda_device))
+    for s in range(n_shards):
+        kernels.apply_lanes_plain(ref[s], rows[s], *widths, counter=ref_c[s])
+    before = kernels.launches["sharded_apply_plan"]
+    kernels.sharded_apply_lanes(got, rows, widths, got_c)
+    torch.cuda.synchronize()
+    live = sum(1 for b in sizes if b)
+    assert (kernels.launches["sharded_apply_plan"]
+            == before + -(-live // 16))
+    assert (kernels.last_variant["sharded_apply_plan"]
+            == kernels.apply_variant(max(sizes), limit))
+    for r, g in zip(ref, got):
+        for a, b in zip(r, g):
+            assert torch.equal(a, b)
+    for r, g in zip(ref_c, got_c):
+        assert torch.equal(r, g)
+
+
+def scatter_edge_case(seed: int, b: int, n1: int, s1: int, k: int):
+    """A K2 case from :func:`scatter_case` with some of its ``idx`` written
+    negative (counting back from the end to the same docs) and indices
+    outside ``[-B, B)`` added (dropped), with rows of their own."""
+    tables, (idx, nr, nd, ns) = scatter_case(seed, b, n1, s1, k)
+    g = np.random.default_rng(seed + 1)
+    idx = idx.astype(np.int64)
+    neg = g.random(k) < 0.3
+    idx[neg] -= b
+    wild = np.array([b, b + 7, -b - 1, -2 * b][: max(1, min(4, k))])
+    extra = len(wild)
+    idx = np.concatenate([idx, wild]).astype(np.int32)
+    nr = np.concatenate([nr, g.integers(-1, n1, size=(extra, n1))]).astype(
+        np.int32)
+    nd = np.concatenate([nd, g.random((extra, n1)) < 0.5])
+    ns = np.concatenate([ns, g.integers(-1, n1, size=(extra, s1))]).astype(
+        np.int32)
+    perm = g.permutation(len(idx))
+    return tables, (idx[perm], nr[perm], nd[perm], ns[perm])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (64, 1024, 17, 20), (64, 1025, 9, 20), (64, 1026, 5, 20),
+    (64, 1027, 33, 20),  # N+1 mod 4 = 0, 1, 2, 3
+    (16, 65, 301, 5),  # S+1 larger than N+1
+    (32, 4097, 9, 1), (32, 4100, 9, 32),  # k = 1, k = B
+    (8, 16385, 17, 8),  # rows wider than one block copies
+])
+def test_scatter_rows_alignments_and_indices(cuda_device, shape):
+    """K2 on every row alignment mod 16 (N+1 mod 4 = 0-3 over random doc
+    and source rows), S+1 above N+1, one row and every row, rows wider
+    than one block, negative and out-of-range ``idx``: equal to the plain
+    version, one launch a call."""
+    b, n1, s1, k = shape
+    tables, rows = scatter_edge_case(71 + n1, b, n1, s1, k)
+    ref = kernels.scatter_rows_plain(
+        *_torch(tables, cuda_device), *_torch(rows, cuda_device))
+    before = kernels.launches["scatter_rows"]
+    got = kernels.scatter_rows(
+        *_torch(tables, cuda_device), *_torch(rows, cuda_device))
+    torch.cuda.synchronize()
+    assert kernels.launches["scatter_rows"] == before + 1
+    for r, o in zip(ref, got):
+        assert torch.equal(r, o)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 2), (1, 65), (5, 300), (1, 4097)])
 def test_list_ranks_kernel_matches_plain(cuda_device, shape):
@@ -1583,7 +1850,7 @@ def test_sharded_apply_kernel_matches_plain(cuda_device, sizes, dtype):
     """K14 over 1, 2, 4 and 17 shards of one card, one with no docs:
     every shard's tables equal the plain version's, each counter its
     plain counter (twice over, so they add), and the launches grow by
-    one sequence per 16 shards with docs."""
+    one per 16 shards with docs."""
     tables, lanes, widths = sharded_apply_case(81, sizes, 129, 17, dtype)
     rows = [torch.from_numpy(r).to(cuda_device) for r in lanes]
     ref = [_torch(t, cuda_device) for t in tables]
@@ -1664,8 +1931,8 @@ def test_sharded_levels_kernel_matches_plain(cuda_device, hang_guard, sizes):
 def test_sharded_steps_launch_once_a_device(cuda_device, hang_guard,
                                             n_shards):
     """Through the mesh's callables on shards that share the card: one
-    launch (K15) or launch sequence (K14) a call for up to 16 shards, two
-    for 17; tables and folded counters equal the plain callables'."""
+    launch (K14, K15) a call for up to 16 shards, two for 17; tables and
+    folded counters equal the plain callables'."""
     from yjs_tpu_torch.parallel import mesh as pm
 
     mesh = _mesh_of(cuda_device, n_shards)

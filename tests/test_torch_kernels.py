@@ -17,8 +17,9 @@ import pytest
 import torch
 
 from test_torch_cuda import (
-    H100_SMEM_OPTIN, H100_STAGED_ROWS, RANK_KINDS, apply_case, rank_kind_case,
-    ranks_case, scatter_case,
+    H100_SMEM_OPTIN, H100_STAGED_ROWS, RANK_KINDS, apply_case, overlap_case,
+    rank_kind_case, ranks_case, scatter_case, scatter_edge_case,
+    without_sections,
 )
 from yjs_tpu.ops import kernels as jk
 from yjs_tpu.ops import segment_planner as jsp
@@ -75,6 +76,77 @@ def test_apply_lanes_case_has_unique_targets():
         assert (lanes[off + total : off + k] == width).all()  # padding
 
 
+def dense_sparse_overlaps(case):
+    """The ``(doc, row, dense value, sparse value)`` of every row that a
+    case's dense and sparse lanes both write (sparse targets kept by
+    JAX's drop rule)."""
+    (_r, _d, _s), lanes, (k_dn, k_sp, _k_h, _k_d) = case
+    b, n1 = _r.shape
+    lanes = lanes.astype(np.int64)
+    cnt_dn, cnt_sp = lanes[:b], lanes[b : 2 * b]
+    start = np.cumsum(cnt_dn) - cnt_dn
+    o = 4 * b + k_dn
+    total = int(cnt_sp.sum())
+    docs = np.repeat(np.arange(b), cnt_sp)
+    rows, vals = lanes[o : o + total], lanes[o + k_sp : o + k_sp + total]
+    out = []
+    for d, r, v in zip(docs, rows, vals):
+        if -n1 <= r < n1 and r % n1 < cnt_dn[d]:
+            dense = lanes[4 * b + start[d] + r % n1]
+            out.append((int(d), int(r % n1), int(dense), int(v)))
+    return out
+
+
+@pytest.mark.parametrize("shape", [(16, 257, 9), (40, 65, 33)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_apply_case_has_dense_sparse_overlaps(seed, shape):
+    """The parity cases above write some rows by both dense and sparse
+    lanes of one doc, with other values, so holding the plain version to
+    JAX covers the order of the two scatters: the sparse value stays."""
+    b, n1, s1 = shape
+    case = apply_case(seed * 100 + b, b, n1, s1)
+    both = dense_sparse_overlaps(case)
+    assert any(dense != sparse for _d, _r, dense, sparse in both)
+    tables, lanes, widths = case
+    want = jk.apply_lanes(
+        tuple(jnp.asarray(a) for a in tables), jnp.asarray(lanes), *widths
+    )
+    right = _np(want[0])
+    assert all(right[d, r] == sparse for d, r, _dense, sparse in both)
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("shape", [(1, 65, 9), (7, 129, 17)])
+def test_apply_lanes_plain_matches_jax_where_sparse_overwrites(shape, dtype):
+    """Every doc's sparse lanes rewrite rows its dense lanes wrote: the
+    plain version equals JAX's, and keeps the sparse values."""
+    tables, lanes, widths, want_rows = overlap_case(41 + shape[0], *shape,
+                                                    dtype)
+    want = jk.apply_lanes(
+        tuple(jnp.asarray(a) for a in tables), jnp.asarray(lanes), *widths
+    )
+    got = tk.apply_lanes(_torch(tables), torch.from_numpy(lanes), *widths)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(_np(w), _np(g))
+    right = _np(got[0])
+    assert all(right[d, r] == v for d, r, v in want_rows)
+
+
+@pytest.mark.parametrize("drop", [("sparse",), ("dense",), ("heads", "dels"),
+                                  ("dense", "sparse", "heads", "dels")])
+def test_apply_lanes_plain_matches_jax_with_empty_sections(drop):
+    """Sections of width 0: the plain version (the card's yardstick)
+    equals JAX's."""
+    tables, lanes, widths = without_sections(
+        apply_case(23, 16, 129, 17), drop)
+    want = jk.apply_lanes(
+        tuple(jnp.asarray(a) for a in tables), jnp.asarray(lanes), *widths
+    )
+    got = tk.apply_lanes(_torch(tables), torch.from_numpy(lanes), *widths)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(_np(w), _np(g))
+
+
 def test_apply_plan2_writes_in_place_and_counts_no_cpu_launch():
     tables, lanes, widths = apply_case(3, 4, 65, 9)
     dyn = _torch(tables)
@@ -100,6 +172,32 @@ def test_scatter_rows_plain_matches_jax(seed, shape):
     assert all(o is d for o, d in zip(got, dyn))
     for w, g in zip(want, got):
         np.testing.assert_array_equal(_np(w), _np(g))
+
+
+@pytest.mark.parametrize("shape", [(8, 129, 17, 3), (16, 65, 301, 16)])
+def test_scatter_rows_plain_matches_jax_on_wrapped_and_wild_idx(shape):
+    """Negative ``idx`` (counted from the end) and indices outside
+    ``[-B, B)`` (dropped), S+1 above N+1: the plain version equals
+    JAX's."""
+    b, n1, s1, k = shape
+    tables, rows = scatter_edge_case(7 + n1, b, n1, s1, k)
+    assert (rows[0] < 0).any() and ((rows[0] < -b) | (rows[0] >= b)).any()
+    want = jk.scatter_rows(
+        *(jnp.asarray(a) for a in tables), *(jnp.asarray(a) for a in rows)
+    )
+    got = tk.scatter_rows(*_torch(tables), *_torch(rows))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(_np(w), _np(g))
+
+
+def test_scatter_rows_checks_every_input_in_one_pass():
+    """A tensor on another device than ``right`` raises ``ValueError``
+    naming it, before any work."""
+    tables, rows = scatter_case(3, 4, 65, 9, 2)
+    args = [*_torch(tables), *_torch(rows)]
+    args[5] = torch.zeros((2, 65), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="new_deleted on meta"):
+        tk.scatter_rows(*args)
 
 
 # -- K8: list_ranks -------------------------------------------------------------

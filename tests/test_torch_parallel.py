@@ -48,6 +48,7 @@ from yjs_tpu_torch.parallel import DocMesh, doc_mesh, shard_meshes
 from yjs_tpu_torch.parallel import mesh as tmesh
 
 CPU = torch.device("cpu")
+H100 = 232448  # the shared memory an H100's blocks may opt into
 
 
 @pytest.fixture(autouse=True)
@@ -661,12 +662,15 @@ def test_levels_descriptor_variants(variant, limit):
 
 @pytest.mark.parametrize("n_shards", sorted(ROUNDS))
 def test_apply_descriptor_rows_and_rounds(n_shards, monkeypatch):
-    """K14's descriptor: 7 ints a shard in shard order (lanes, its slice of
-    the device's one cum scratch, right, deleted, starts, counter, doc
-    count), and one launch sequence per 16 shards; int16 lanes take the
-    i16 entry."""
+    """K14's descriptor: 7 ints a shard in shard order (lanes, its cum rows
+    — none, 0, in the "staged" variant these small shards take — right,
+    deleted, starts, counter, doc count), and one launch per 16 shards,
+    the entry handed the scratch's zeroed counters and the variant;
+    int16 lanes take the i16 entry, and a second call keeps the same
+    scratch."""
     from yjs_tpu_torch.ops import _cuda
 
+    sync = _cuda.APPLY_SYNC_INTS
     widths, lanes, tables = apply_case(n_shards, n_shards=n_shards, b_loc=2,
                                        n1=9, s1=5, widths=(4, 2, 2, 2))
     dyn = shard_tables(doc_mesh(n_shards, backend="cpu"), *tables)
@@ -674,24 +678,97 @@ def test_apply_descriptor_rows_and_rounds(n_shards, monkeypatch):
         rows = [torch.from_numpy(r).to(dtype) for r in lanes]
         counters = list(torch.zeros((n_shards, 2), dtype=torch.int32))
         counters[-1] = None  # a shard may count nothing
-        desc, dims, cum = tk._apply_desc(CPU, list(range(n_shards)), dyn,
-                                         rows, counters, widths)
-        assert dims == (dtype == torch.int32, 9, 5)
-        assert cum.shape == (8 * n_shards,) and cum.dtype == torch.int32
+        desc, dims, scratch = tk._apply_desc(CPU, list(range(n_shards)), dyn,
+                                             rows, counters, widths,
+                                             limit=H100)
+        assert dims == (dtype == torch.int32, 9, 5, 1)
+        assert scratch.dtype == torch.int32 and scratch.numel() >= sync
+        assert not bool(scratch[:sync].any())
         for s in range(n_shards):
             c = counters[s]
             assert desc[7 * s : 7 * (s + 1)] == [
-                rows[s].data_ptr(), cum[8 * s :].data_ptr(),
-                *(t.data_ptr() for t in dyn[s]),
+                rows[s].data_ptr(), 0, *(t.data_ptr() for t in dyn[s]),
                 0 if c is None else c.data_ptr(), 2]
         seen = record_entry(monkeypatch, _cuda.APPLY_ROW)
-        got = _cuda.apply_lanes(desc, CPU, *dims, *widths)
+        got = _cuda.apply_lanes(desc, CPU, scratch.data_ptr(), *dims, *widths)
         assert got == ROUNDS[n_shards]
         assert seen["entry"] == ("ytpu_apply_lanes_sharded_i32"
                                  if dtype == torch.int32
                                  else "ytpu_apply_lanes_sharded_i16")
         assert seen["n"] == n_shards and seen["rows"] == desc
-        assert seen["scalars"] == (9, 5, *widths)
+        assert seen["scalars"] == (scratch.data_ptr(), 9, 5, 1, *widths)
+        again = tk._apply_desc(CPU, list(range(n_shards)), dyn, rows,
+                               counters, widths, limit=H100)
+        assert again[2] is scratch and again[0] == desc
+
+
+def test_apply_variant_by_size():
+    """K1/K14's variant comes from the largest shard's doc count and the
+    card's opt-in limit alone: "staged" while 4 bytes a doc and the
+    block's other 1 KB fit the limit (on an H100, 232448 bytes: 57,856
+    docs), "global" past it."""
+    assert tk.apply_stage_max(H100) == 57856
+    assert tk.apply_stage_max(48 * 1024) == 12032
+    assert tk.apply_stage_max(0) == 0
+    for limit in (H100, 48 * 1024):
+        top = tk.apply_stage_max(limit)
+        assert 4 * top + tk.APPLY_STATIC_SMEM <= limit
+        assert [tk.apply_variant(b, limit)
+                for b in (0, 1, 4096, top, top + 1, 65536)] == \
+            ["staged"] * 4 + ["global"] * 2
+
+
+def test_apply_descriptor_global_variant_rows():
+    """A shard past the staged limit makes the launch "global": every
+    shard's cum rows are ``4 * b`` int32 of the scratch, after the
+    counters, in shard order (a shard with no docs has none)."""
+    from yjs_tpu_torch.ops import _cuda
+
+    sync = _cuda.APPLY_SYNC_INTS
+    widths = (4, 2, 2, 2)
+    lane_w = 4 + 2 * 2 + 2 * 2 + 2
+    limit = 4096
+    sizes = [3, tk.apply_stage_max(limit) + 1, 0, 5]
+    dyn = [(torch.zeros((b, 9), dtype=torch.int32),
+            torch.zeros((b, 9), dtype=torch.bool),
+            torch.zeros((b, 5), dtype=torch.int32)) for b in sizes]
+    rows = [torch.zeros(4 * b + lane_w, dtype=torch.int16) for b in sizes]
+    desc, dims, scratch = tk._apply_desc(CPU, range(4), dyn, rows,
+                                         [None] * 4, widths, limit=limit)
+    assert dims == (False, 9, 5, 0)
+    assert scratch.numel() >= sync + 4 * sum(sizes)
+    at = sync
+    for k, b in enumerate(b for b in sizes if b):
+        assert desc[7 * k + 1] == scratch[at:].data_ptr()
+        assert desc[7 * k + 6] == b
+        at += 4 * b
+    _desc, dims, _scratch = tk._apply_desc(CPU, range(4), dyn, rows,
+                                           [None] * 4, widths, limit=H100)
+    assert dims[3] == 1  # an H100's opt-in limit stages them
+
+
+def test_apply_scratch_kept_per_stream(monkeypatch):
+    """K1/K14's scratch is one a device and stream: a call on the same
+    stream reuses it, another stream gets its own, and a call that needs
+    more cum rows grows it to a power of two with zeroed counters."""
+    from yjs_tpu_torch.ops import _cuda
+
+    stream = [11]
+    monkeypatch.setattr(tk, "_stream_key", lambda dev: stream[0])
+    monkeypatch.setattr(tk, "_apply_scratch_by_stream", {})
+    sync = _cuda.APPLY_SYNC_INTS
+    a = tk._apply_scratch(CPU, 40)
+    assert a.numel() == 2048 and not bool(a.any())
+    assert tk._apply_scratch(CPU, 1000) is a
+    stream[0] = 12
+    b = tk._apply_scratch(CPU, 40)
+    assert b is not a and b.data_ptr() != a.data_ptr()
+    stream[0] = 11
+    grown = tk._apply_scratch(CPU, 3 * sync)
+    assert grown is not a and grown.numel() == 4096
+    assert not bool(grown[:sync].any())
+    assert tk._apply_scratch(CPU, 8) is grown
+    assert set(tk._apply_scratch_by_stream) == {(CPU, 11), (CPU, 12)}
 
 
 def test_levels_descriptor_checks_each_shard():
@@ -732,7 +809,7 @@ def test_apply_descriptor_checks_each_shard():
     """A shard whose lanes dtype, N+1 or S+1 differs from the first's,
     whose lanes length does not match the widths, or whose tensor lies
     on another device raises ``ValueError``; a shard with no docs is left
-    out of the rows and the cum scratch."""
+    out of the rows and the cum rows."""
     widths, lanes, tables = apply_case(3, n_shards=4, b_loc=2, n1=9, s1=5,
                                        widths=(4, 2, 2, 2))
     dyn = shard_tables(doc_mesh(4, backend="cpu"), *tables)
@@ -763,11 +840,12 @@ def test_apply_descriptor_checks_each_shard():
     empty[1] = tuple(t[:0] for t in dyn[1])
     r = rows()
     r[1] = r[1][8:]  # no counts: the sections alone
-    desc, _dims, cum = tk._apply_desc(CPU, range(4), empty, r, counters,
-                                      widths)
-    assert len(desc) == 21 and cum.shape == (24,)
+    desc, _dims, scratch = tk._apply_desc(CPU, range(4), empty, r, counters,
+                                          widths, limit=H100)
+    assert len(desc) == 21
     assert [desc[7 * k] for k in range(3)] == [r[s].data_ptr()
                                                for s in (0, 2, 3)]
+    assert [desc[7 * k + 1] for k in range(3)] == [0, 0, 0]
 
 
 def test_sharded_steps_record_one_profiled_call(mesh8, levels_case):

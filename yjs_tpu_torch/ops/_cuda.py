@@ -52,8 +52,10 @@ _int = ctypes.c_int
 _i64 = ctypes.c_int64
 # C entry points: name -> (library, argtypes)
 _ENTRIES = {
-    "ytpu_apply_lanes_sharded_i32": ("apply_lanes", [_vp] + [_int] * 7 + [_vp]),
-    "ytpu_apply_lanes_sharded_i16": ("apply_lanes", [_vp] + [_int] * 7 + [_vp]),
+    "ytpu_apply_lanes_sharded_i32": ("apply_lanes",
+                                     [_vp, _int, _vp] + [_int] * 7 + [_vp]),
+    "ytpu_apply_lanes_sharded_i16": ("apply_lanes",
+                                     [_vp, _int, _vp] + [_int] * 7 + [_vp]),
     "ytpu_scatter_rows": ("scatter_rows", [_vp] * 7 + [_int] * 4 + [_vp]),
     "ytpu_list_ranks": ("list_ranks", [_vp] * 5 + [_int] * 4 + [_vp]),
     "ytpu_empty_launch": ("list_ranks", [_vp]),
@@ -77,11 +79,14 @@ LOOKUP_MAX_SHARDS = 64
 # state_vector.cu), and the ints of a shard's row in its descriptor
 SV_MAX_SHARDS = 64
 SV_ROW = 7
-# the most shards one apply-lanes launch sequence or levels launch takes
-# (kMaxShards in apply_lanes.cu and yata.cu), and the ints of a shard's
-# row in their descriptors
+# the most shards one apply-lanes or levels launch takes (kMaxShards in
+# apply_lanes.cu and yata.cu), and the ints of a shard's row in their
+# descriptors
 MESH_MAX_SHARDS = 16
 APPLY_ROW = 7
+# the int32 counters in front of an apply-lanes scratch's cum rows
+# (kSyncInts in apply_lanes.cu), zero between launches
+APPLY_SYNC_INTS = 1024
 LEVELS_ROW = 17
 # the least haystack length the anchor lookup stages in shared memory,
 # and the keys of that sample (kSample in the source)
@@ -195,6 +200,15 @@ def _bind_streams() -> None:
     stream_lookup = getattr(_raw_stream, "__name__", str(_raw_stream))
 
 
+def current_stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream, which the next
+    launch on ``device`` takes."""
+    if _raw_stream is None:
+        _bind_streams()
+    idx = device.index
+    return _raw_stream(_current_device() if idx is None else idx)
+
+
 def _call(entry: str, device: torch.device, *args) -> None:
     """Launch ``entry`` on the current stream of ``device``, switching the
     current device only when it is another one (a mesh over several
@@ -221,23 +235,25 @@ def _opt(t):
 
 
 def rounds(n_shards: int, per: int = MESH_MAX_SHARDS) -> int:
-    """The launches (or launch sequences) of ``n_shards`` shards with
-    work, ``per`` a round."""
+    """The launches of ``n_shards`` shards with work, ``per`` a round."""
     return -(-n_shards // per)
 
 
-def apply_lanes(desc: list, device: torch.device, wide: bool, n1, s1,
-                k_dn, k_sp, k_h, k_d) -> int:
+def apply_lanes(desc: list, device: torch.device, sync: int, wide: bool,
+                n1, s1, staged, k_dn, k_sp, k_h, k_d) -> int:
     """Every shard of ``desc`` (flat rows of :data:`APPLY_ROW` ints: the
     ``data_ptr`` of lanes, cum, right, deleted, starts and counter, 0 for
     none, then the doc count; all on ``device``) scattered by one launch
-    sequence per :data:`MESH_MAX_SHARDS` shards; ``wide``: int32 lanes,
-    else int16.  Returns the launch sequences."""
+    per :data:`MESH_MAX_SHARDS` shards; ``sync``: the ``data_ptr`` of the
+    :data:`APPLY_SYNC_INTS` zeroed counters of the scratch kept for the
+    current stream; ``wide``: int32 lanes, else int16; ``staged``: 1 for
+    the variant whose lane blocks scan their counts in shared memory.
+    Returns the launches."""
     n = len(desc) // APPLY_ROW
     rows = array.array("q", desc)  # read by the entry before it returns
     _call("ytpu_apply_lanes_sharded_i32" if wide
           else "ytpu_apply_lanes_sharded_i16", device, rows.buffer_info()[0],
-          n, n1, s1, k_dn, k_sp, k_h, k_d)
+          n, sync, n1, s1, staged, k_dn, k_sp, k_h, k_d)
     return rounds(n)
 
 

@@ -62,8 +62,8 @@ length, copies them to ``device`` (the CUDA device unless told
 otherwise), runs the wrapper and copies back.
 
 The doc mesh (:mod:`yjs_tpu_torch.parallel`) runs these kernels per
-shard.  Five wrappers here serve it, each with one launch (or launch
-sequence) for all the shards of a device:
+shard.  Five wrappers here serve it, each with one launch (more in
+rounds) for all the shards of a device:
 
 - :func:`sharded_apply_lanes` (K14) and :func:`sharded_batch_step_levels`
   (K15) run the bulk apply and the level step on every shard's tables,
@@ -226,18 +226,19 @@ def apply_lanes(dyn, lanes, k_dn, k_sp, k_h, k_d, counter=None):
       [r]*k_d           delete marks
     Out-of-bounds targets (padding) are dropped.  ``counter``: a ``[2]``
     int32 tensor that gains the dense plus sparse counts' sum and the
-    delete counts' sum.  On CUDA it is the one-shard launch sequence of
-    :func:`sharded_apply_lanes`' kernels.  Returns ``dyn``."""
+    delete counts' sum.  On CUDA it is the one-shard launch of
+    :func:`sharded_apply_lanes`' kernel.  Returns ``dyn``."""
     right_link, deleted, starts = dyn
     ins = (right_link, deleted, starts, lanes)
     if not _on_cuda(*ins, *(() if counter is None else (counter,))):
         return apply_lanes_plain(dyn, lanes, k_dn, k_sp, k_h, k_d, counter)
     dev = lanes.device
-    desc, dims, _cum = _apply_desc(dev, (0,), [dyn], [lanes], [counter],
-                                   (k_dn, k_sp, k_h, k_d))
+    desc, dims, scratch = _apply_desc(dev, (0,), [dyn], [lanes], [counter],
+                                      (k_dn, k_sp, k_h, k_d))
     if desc:
         launches["apply_lanes"] += _cuda.apply_lanes(
-            desc, dev, *dims, k_dn, k_sp, k_h, k_d)
+            desc, dev, scratch.data_ptr(), *dims, k_dn, k_sp, k_h, k_d)
+        last_variant["apply_lanes"] = APPLY_VARIANTS[dims[3]]
     return right_link, deleted, starts
 
 
@@ -286,18 +287,69 @@ def _apply_shard(s, dev, dyn, row, counter, lane_w):
     return b, (row.dtype == torch.int32, shape[1], ss[1])
 
 
-def _apply_desc(dev, shards, dyn, lanes, counters, widths):
+# K1/K14's variants: "staged" lane blocks scan their own section's counts
+# into shared memory (4 bytes a doc, besides APPLY_STATIC_SMEM of their
+# own), "global" ones search the cum rows the scan blocks write to the
+# scratch (csrc/apply_lanes.cu)
+APPLY_VARIANTS = ("global", "staged")
+APPLY_STATIC_SMEM = 1024
+
+
+def apply_stage_max(limit: int) -> int:
+    """The most docs a shard of the "staged" variant holds on a card whose
+    blocks may opt into ``limit`` bytes of shared memory."""
+    return max(0, (limit - APPLY_STATIC_SMEM) // 4)
+
+
+def apply_variant(b: int, limit: int) -> str:
+    """K1/K14's variant for a launch whose largest shard holds ``b`` docs
+    on a card whose blocks may opt into ``limit`` bytes of shared memory:
+    "staged" while the counts fit (:func:`apply_stage_max`), else
+    "global"."""
+    return APPLY_VARIANTS[b <= apply_stage_max(limit)]
+
+
+# K1/K14's scratch, one a device and stream: {(device, stream): int32
+# tensor}, the kernel's zeroed counters (_cuda.APPLY_SYNC_INTS) in front
+# of the cum rows.  Keyed by stream because the counters order the blocks
+# of one launch: launches on one stream run one after another and each
+# leaves them zero, while two streams sharing one scratch would race.
+_apply_scratch_by_stream: dict = {}
+
+
+def _stream_key(dev) -> int:
+    """``dev``'s current stream handle; 0 on the CPU."""
+    return _cuda.current_stream(dev) if dev.type == "cuda" else 0
+
+
+def _apply_scratch(dev, cum_ints: int) -> torch.Tensor:
+    """The scratch of ``dev``'s current stream with room for ``cum_ints``
+    cum entries, grown (to a power of two, zeroed) when it has less."""
+    key = (dev, _stream_key(dev))
+    need = _cuda.APPLY_SYNC_INTS + cum_ints
+    buf = _apply_scratch_by_stream.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(1 << (need - 1).bit_length(), dtype=torch.int32,
+                          device=dev)
+        _apply_scratch_by_stream[key] = buf
+    return buf
+
+
+def _apply_desc(dev, shards, dyn, lanes, counters, widths, limit=None):
     """The K1/K14 launch descriptor for ``shards`` (indices into the
     per-shard lists ``dyn``, ``lanes`` and ``counters``; None for no
     counter), every tensor on ``dev``: each shard's tables, lanes row and
-    counter checked once, one int32 cum scratch for the device (``4 * b``
-    a shard) and :data:`_cuda.APPLY_ROW` ints a shard with docs, in shard
-    order — the ``data_ptr`` of its lanes, cum slice, right, deleted,
-    starts and counter (0 for none), then its doc count ``b``.  A shard
-    whose N+1, S+1 or lanes dtype differs from the first's, or whose
-    tensors lie on another device, raises ``ValueError``.  Returns
-    ``(desc, (wide, n1, s1), cum)``; keep ``cum`` until the launch is
-    enqueued."""
+    counter checked once, and :data:`_cuda.APPLY_ROW` ints a shard with
+    docs, in shard order — the ``data_ptr`` of its lanes, its cum rows
+    (``4 * b`` int32 of the scratch, after the counters; 0 in the
+    "staged" variant, which needs none), right, deleted, starts and
+    counter (0 for none), then its doc count ``b``.  A shard whose N+1,
+    S+1 or lanes dtype differs from the first's, or whose tensors lie on
+    another device, raises ``ValueError``.  Returns ``(desc, (wide, n1,
+    s1, staged), scratch)``: ``staged`` 1 for :func:`apply_variant`'s
+    "staged" at the largest shard and ``limit`` (None: the card's opt-in
+    limit), and the scratch of ``dev``'s current stream
+    (:func:`_apply_scratch`)."""
     k_dn, k_sp, k_h, k_d = widths
     lane_w = k_dn + 2 * k_sp + 2 * k_h + k_d
     first = None
@@ -314,17 +366,21 @@ def _apply_desc(dev, shards, dyn, lanes, counters, widths):
         if b:
             live.append((s, b))
             total += 4 * b
-    cum = torch.empty(total, dtype=torch.int32, device=dev)
-    ptr = cum.data_ptr()
+    if limit is None:
+        limit = _cuda.smem_optin(dev)
+    largest = max((b for _s, b in live), default=0)
+    staged = apply_variant(largest, limit) == "staged"
+    scratch = _apply_scratch(dev, 0 if staged else total)
+    ptr = scratch.data_ptr() + 4 * _cuda.APPLY_SYNC_INTS
     desc = []
     for s, b in live:
         right, deleted, starts = dyn[s]
         counter = counters[s]
-        desc += (lanes[s].data_ptr(), ptr, right.data_ptr(),
+        desc += (lanes[s].data_ptr(), 0 if staged else ptr, right.data_ptr(),
                  deleted.data_ptr(), starts.data_ptr(),
                  0 if counter is None else counter.data_ptr(), b)
         ptr += 16 * b
-    return desc, first, cum
+    return desc, (*first, int(staged)), scratch
 
 
 @profiled("apply_plan2")
@@ -353,6 +409,15 @@ def scatter_rows_plain(right, deleted, starts, idx, new_right, new_deleted,
     return right, deleted, starts
 
 
+# K2's arguments in order: name, dtype, dims
+_SCATTER_ARGS = (
+    ("right", torch.int32, 2), ("deleted", torch.bool, 2),
+    ("starts", torch.int32, 2), ("idx", torch.int32, 1),
+    ("new_right", torch.int32, 2), ("new_deleted", torch.bool, 2),
+    ("new_starts", torch.int32, 2),
+)
+
+
 @profiled("scatter_rows")
 def scatter_rows(right, deleted, starts, idx, new_right, new_deleted,
                  new_starts):
@@ -360,15 +425,22 @@ def scatter_rows(right, deleted, starts, idx, new_right, new_deleted,
     host columns, in place (compaction rebuilds, deferred warm-promotion
     hydrations).  Returns ``(right, deleted, starts)``."""
     args = (right, deleted, starts, idx, new_right, new_deleted, new_starts)
-    if not _on_cuda(*args):
+    dev = right.device
+    cuda = dev.type == "cuda"
+    for t, (name, dtype, ndim) in zip(args, _SCATTER_ARGS):
+        if t.device != dev:
+            raise ValueError(
+                f"kernel inputs must all be on the CPU or on one CUDA "
+                f"device, got {name} on {t.device} and right on {dev}")
+        if cuda and (t.dtype != dtype or t.dim() != ndim
+                     or not t.is_contiguous()):
+            raise (TypeError if t.dtype != dtype else ValueError)(
+                f"{name}: a contiguous {ndim}-D {dtype} tensor, got "
+                f"{t.dim()}-D {t.dtype}")
+    if not cuda:
+        if dev.type != "cpu":
+            raise _unsupported(dev)
         return scatter_rows_plain(*args)
-    _check(right, "right", (torch.int32,), 2)
-    _check(deleted, "deleted", (torch.bool,), 2)
-    _check(starts, "starts", (torch.int32,), 2)
-    _check(idx, "idx", (torch.int32,), 1)
-    _check(new_right, "new_right", (torch.int32,), 2)
-    _check(new_deleted, "new_deleted", (torch.bool,), 2)
-    _check(new_starts, "new_starts", (torch.int32,), 2)
     k = idx.shape[0]
     b, n1 = right.shape
     s1 = starts.shape[1]
@@ -617,7 +689,8 @@ YATA_RESERVED_SMEM = 1024
 YATA_MIN_DOCS_SM = 16
 # the variant each YATA wrapper's and K8's last CUDA launch took
 # (chip_smoke.py and the card's tests read it)
-last_variant = dict.fromkeys(("batch_step", "batch_step_levels",
+last_variant = dict.fromkeys(("apply_lanes", "sharded_apply_plan",
+                              "batch_step", "batch_step_levels",
                               "batch_step_levels_shared",
                               "sharded_batch_step", "list_ranks"))
 
@@ -1493,17 +1566,19 @@ def sharded_apply_lanes(dyn, lanes, widths, counters):
     its lanes row ``lanes[s]`` into its tables ``dyn[s]``, as
     :func:`apply_lanes` does, counting into ``counters[s]`` (a ``[2]``
     int32 row, or None).  ``widths`` (``k_dn, k_sp, k_h, k_d``) are every
-    shard's.  The shards of one CUDA device share one cum scratch and one
-    launch sequence (a round per :data:`_cuda.MESH_MAX_SHARDS` shards with
-    docs, counted in ``launches["sharded_apply_plan"]``); shards on the
-    CPU take the plain version.  Returns ``dyn``."""
+    shard's.  The shards of one CUDA device share one scratch (that of
+    its current stream) and one launch (a round per
+    :data:`_cuda.MESH_MAX_SHARDS` shards with docs, counted in
+    ``launches["sharded_apply_plan"]``); shards on the CPU take the plain
+    version.  Returns ``dyn``."""
     for dev, shards in _shard_devices(dyn).items():
         if dev.type == "cuda":
-            desc, dims, _cum = _apply_desc(dev, shards, dyn, lanes, counters,
-                                           widths)
+            desc, dims, scratch = _apply_desc(dev, shards, dyn, lanes,
+                                              counters, widths)
             if desc:
                 launches["sharded_apply_plan"] += _cuda.apply_lanes(
-                    desc, dev, *dims, *widths)
+                    desc, dev, scratch.data_ptr(), *dims, *widths)
+                last_variant["sharded_apply_plan"] = APPLY_VARIANTS[dims[3]]
         elif dev.type == "cpu":
             for s in shards:
                 apply_lanes_plain(dyn[s], lanes[s], *widths,

@@ -28,7 +28,7 @@ Axes:
 
 Each ``sharded_*`` factory returns a callable, wrapped by ``profiled``
 under the reference's name.  The apply (K14) and level (K15) steps make
-one launch (or launch sequence) a device for all its shards, whose
+one launch a device for all its shards, whose
 tensors travel to the kernel by value, and so do the state vectors (K16).
 Each counts its launches in ``kernels.launches``.  With
 ``plain=True`` the callable runs the kernels' plain PyTorch versions
@@ -280,7 +280,7 @@ def sharded_apply_plan(mesh: DocMesh, axis: str, k_dn: int, k_sp: int,
     one row placed on each shard, or the per-shard rows); ``dyn`` holds
     each shard's ``(right, deleted, starts)``.  Each shard's ``[2]`` int32
     counter holds its dense plus sparse counts and its delete counts, the
-    totals of the count scan.  One launch sequence a device
+    totals of the count scan.  One launch a device
     (:func:`kernels.sharded_apply_lanes`)."""
     from ..ops import kernels
 
