@@ -157,6 +157,11 @@ script exits non-zero:
    with its shared-memory sample staged and not staged, in turns, each
    from 50 launches replayed back to back from a CUDA graph
    (``graph_ms_staged``, ``graph_ms_unstaged``);
+   K12's two rows (chunk and per doc) are held to the plain version on
+   the planner's captured input, on a doc at every tile edge and on one
+   chained run through 2**20 lanes, and add ``kernels_a_call`` (checked:
+   one kernel), ``ms_obs_off``, ``host_us``, ``graph_ms`` (50 calls
+   replayed from a CUDA graph), ``lanes_a_thread`` and ``tiles``;
 10. the last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -1169,8 +1174,7 @@ def planner_flush(eng, timer: PlannerTimer) -> dict:
           f"plan_threads {m['plan_threads']} != co-planned {want}")
     dev = device_split(prof)
     k12 = sum(v for k, v in dev["by_name"].items()
-              if any(s in k for s in ("scan_tiles", "scan_offsets",
-                                       "add_offsets")))
+              if "conflict_scan_kernel" in k)
     k11 = sum(v for k, v in dev["by_name"].items() if "anchor_lookup" in k)
     return {
         "wall": wall, "plan": m["t_plan_s"] + m["t_compact_s"],
@@ -2430,21 +2434,68 @@ def host_copy_ms(host: list, outs: list) -> tuple[float, float]:
     return h2d, d2h
 
 
+def scan_edge_inputs(n: int, tile: int | None):
+    """``(cols, doc)``: K12's seven int64 columns and a doc column of
+    ``n`` lanes on the card, every lane's origin inside the lane before's
+    id range; a new doc at every multiple of ``tile`` (None: one doc, a
+    single run through every tile)."""
+    g = torch.Generator().manual_seed(12)
+    length = torch.randint(1, 5, (n,), generator=g)
+    clock = torch.cumsum(length, 0) - length
+    client = torch.full((n,), 3)
+    o_ck = torch.roll(clock + length - 1, 1)
+    cols = (client, clock, length, client, o_ck, torch.full((n,), -1),
+            torch.zeros(n, dtype=torch.int64))
+    doc = torch.arange(n) // tile if tile else torch.zeros(n, dtype=torch.int64)
+    return ([c.to(torch.int64).to("cuda") for c in cols],
+            doc.to(torch.int64).to("cuda"))
+
+
 def planner_rows(plseen: dict, pl_launches: dict) -> list[dict]:
     """K12 (chunk and per doc) and K11 against their plain versions at
     the largest input the planner path gave each, with the copies around
-    them."""
+    them; K12 also on a doc at every tile edge and on one run through
+    2**20 lanes, and with its kernels a call, host split and graph
+    replay time."""
+    from yjs_tpu_torch.ops import _cuda
     from yjs_tpu_torch.ops import kernels as K
 
     rows = []
+    tile = _cuda.SCAN_THREADS * _cuda.SCAN_LANES
+    edges = scan_edge_inputs(3 * tile + 1, tile)
+    chained = scan_edge_inputs(1 << 20, None)
     for name, line in (("conflict_scan_chunk", 604), ("conflict_scan", 548)):
         args = plseen[name]
         cols, doc = args[:7], (args[7] if len(args) > 7 else None)
-        got = K.conflict_scan(*cols, doc)
-        ref = K.conflict_scan_plain(*cols, doc)
-        err = max(max_abs_err(g, r) for g, r in zip(got, ref))
-        ms = cuda_ms(lambda: K.conflict_scan(*cols, doc))
-        dev_ms = device_ms(lambda: K.conflict_scan(*cols, doc))
+        err = 0.0
+        # the planner's captured input, then a doc at every tile edge and
+        # one run through 2**20 lanes, in this row's form
+        for c, d in ((cols, doc), edges, chained):
+            d = d if name == "conflict_scan_chunk" else None
+            got = K.conflict_scan(*c, d)
+            ref = K.conflict_scan_plain(*c, d)
+            err = max(err, *(max_abs_err(g, r) for g, r in zip(got, ref)))
+        check(err == 0, f"K12 {name} differs from its plain version")
+
+        def call():
+            return K.conflict_scan(*cols, doc)
+
+        got = call()
+        # a trace may lose an event (a count falls short, never over) or
+        # record none: traced again then
+        for _ in range(5):
+            a_call = kernels_a_call(call, n=20)
+            if a_call is not None:
+                break
+        check(a_call is not None and len(a_call) == 1
+              and "conflict_scan_kernel" in next(iter(a_call))
+              and 0 < next(iter(a_call.values())) <= 1,
+              f"K12 {name} launched {a_call} a call, not one kernel")
+        ms = cuda_ms(call)
+        ms_obs_off = obs_off(lambda: cuda_ms(call))
+        split = host_split(call)
+        g_ms = graph_ms(call)
+        dev_ms = device_ms(call)
         plain_ms = cuda_ms(lambda: K.conflict_scan_plain(*cols, doc), 5)
         ins = [t for t in args if t is not None]
         h2d, d2h = host_copy_ms([t.cpu().numpy() for t in ins], list(got))
@@ -2454,13 +2505,17 @@ def planner_rows(plseen: dict, pl_launches: dict) -> list[dict]:
             "name": name, "route": "cuda",
             "source": "yjs_tpu_torch/csrc/conflict_scan.cu",
             "replaces": f"yjs_tpu/ops/kernels.py:{line}",
-            "shape": f"lanes={n} columns={len(ins)} int64", "path": "planner",
-            "launches": pl_launches[name], "max_abs_err": err,
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "shape": f"lanes={n} columns={len(ins)} int64; checked also "
+                     f"at {3 * tile + 1} lanes (a doc at every tile edge) "
+                     "and 1048576 (one run)",
+            "path": "planner", "launches": pl_launches[name],
+            "max_abs_err": err, "kernels_a_call": a_call,
+            "lanes_a_thread": _cuda.SCAN_LANES, "tiles": _cuda.scan_tiles(n),
+            "ms": ms, "ms_obs_off": ms_obs_off, "host_us": split,
+            "graph_ms": g_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None, "h2d_ms": h2d, "d2h_ms": d2h,
         })
-    from yjs_tpu_torch.ops import _cuda
 
     flat, q = plseen["anchor_lookup"]
     got = K.anchor_lookup(flat, q)

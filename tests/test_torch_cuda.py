@@ -1246,6 +1246,44 @@ def scan_case(seed: int, n: int, n_docs: int = 0, pad: int = 0,
     return cols, doc_id
 
 
+# K12's cases at its tiles' edges (a tile: _cuda.SCAN_THREADS x
+# _cuda.SCAN_LANES lanes)
+SCAN_KINDS = ("seeded", "chained", "unchained", "doc_edges")
+
+
+def scan_edge_case(kind: str, n: int, tile: int, seed: int = 0,
+                   wide: bool = False):
+    """One K12 case of ``n`` lanes built to cross tiles of ``tile`` lanes:
+    ``(cols, doc_id)`` as :func:`scan_case` gives them.
+
+    - ``seeded``: :func:`scan_case` over about one doc per 300 refs;
+    - ``chained``: every lane's origin inside the lane before's id range,
+      one doc: a single run through every tile (run_id all 1);
+    - ``unchained``: no origin at all (run_id ``1..n``);
+    - ``doc_edges``: ``chained``'s columns with a new doc at every
+      multiple of ``tile``, so the chunk form's chains break exactly at
+      the tile edges and the per-doc form's run through them.
+
+    ``wide`` moves clocks and client ids past 2**31."""
+    if kind == "seeded":
+        return scan_case(seed, n, max(1, n // 300), 0, wide)
+    g = np.random.default_rng(seed)
+    big = 2**33 if wide else 0
+    length = g.integers(1, 5, n)
+    clock = np.cumsum(length) - length + big
+    client = np.full(n, 3 + big)
+    o_ck = np.roll(clock + length - 1 - g.integers(0, length), 1)
+    o_cl = client.copy()
+    if kind == "unchained":
+        o_cl[:] = -1
+    r_cl, r_ck = np.full(n, -1), np.zeros(n, np.int64)
+    doc = (np.arange(n) // tile if kind == "doc_edges"
+           else np.zeros(n, np.int64))
+    cols = [np.asarray(c, np.int64) for c in
+            (client, clock, length, o_cl, o_ck, r_cl, r_ck)]
+    return cols, doc.astype(np.int64)
+
+
 def lookup_case(seed: int, n_hay: int, n_q: int, wide: bool = False,
                 pad: bool = True):
     """One seeded K11 case: ``(flat_key, q_key)`` int64.  The haystack
@@ -1359,27 +1397,203 @@ def trimmed(dyn, n: int, n_segs: int):
     return right[:, :n], deleted[:, :n], starts[:, :n_segs]
 
 
+def scan_kernels_a_call(fn, n: int = 3) -> dict | None:
+    """The CUDA kernels one call of ``fn()`` launches, by name, from a
+    ``torch.profiler`` trace of ``n`` calls after a warm-up call (counts
+    divided by ``n``; a trace may lose an event); None when the trace
+    records no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            out[e.key] = out.get(e.key, 0) + e.count / n
+    return out or None
+
+
+def _scan_both(cols, doc, check_kernels: bool = True):
+    """K12 per doc and per chunk on the card against the plain version:
+    one launch a call by the wrapper's count and, where the trace records
+    events, one kernel a call by ``torch.profiler``."""
+    for d, key in ((None, "conflict_scan"), (doc, "conflict_scan_chunk")):
+        ref = kernels.conflict_scan_plain(*cols, d)
+        before = kernels.launches[key]
+        got = kernels.conflict_scan(*cols, d)
+        torch.cuda.synchronize()
+        assert kernels.launches[key] == before + 1
+        for r, g in zip(ref, got):
+            assert r.dtype == g.dtype and r.is_contiguous()
+            assert torch.equal(r, g), key
+        if check_kernels:
+            # a trace may lose an event, so a count can fall short of the
+            # launches but never exceed them
+            seen = scan_kernels_a_call(lambda: kernels.conflict_scan(*cols, d),
+                                       n=10)
+            if seen is not None:
+                assert len(seen) == 1 and "conflict_scan_kernel" in (
+                    next(iter(seen))), seen
+                assert 0 < next(iter(seen.values())) <= 1, seen
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("shape", [(1, 0, 0), (5, 0, 59), (1023, 0, 1),
                                    (3000, 7, 1096), (600_000, 1024, 448_576),
-                                   (3_000_000, 4096, 145_728)])
-def test_conflict_scan_kernel_matches_plain(cuda_device, shape, wide):
-    """K12, per-doc and chunk, against its plain version; the two largest
-    cases have 2**20 and 3 * 2**20 lanes (1024 and 3072 tiles: the
-    offsets pass then carries its running total over three rounds)."""
+                                   (3_000_000, 4096, 145_728),
+                                   (2047, 3, 0), (2048, 3, 0), (2049, 3, 0),
+                                   (4_000_000, 4096, 194_304)])
+def test_conflict_scan_kernel_matches_plain(cuda_device, hang_guard, shape,
+                                            wide):
+    """K12, per-doc and chunk, against its plain version, one kernel a
+    call: 2**20 and 3 * 2**20 lanes (512 and 1536 tiles of 2048), a tile
+    less one, a tile and a tile and one, and 2**22 lanes (2048 tiles: a
+    deep look-back)."""
     n, n_docs, pad = shape
     cols, doc_id = scan_case(n + n_docs, n, max(1, n_docs), pad, wide)
+    _scan_both(_torch(cols, cuda_device),
+               torch.from_numpy(doc_id).to(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("kind", SCAN_KINDS)
+@pytest.mark.parametrize("at", ["-1", "0", "+1", "2t-1", "2t+1", "2**20",
+                                "2**22"])
+def test_conflict_scan_tile_edges(cuda_device, hang_guard, at, kind, wide):
+    """K12 a lane before, at and past one and two tiles' edges and at
+    2**20 and 2**22 lanes (512 and 2048 tiles): seeded, every lane chained
+    (one run through every tile), none chained, and a doc boundary at
+    every tile edge, with values past 2**31 as well."""
+    tile = kernels._cuda.SCAN_THREADS * kernels._cuda.SCAN_LANES
+    n = {"-1": tile - 1, "0": tile, "+1": tile + 1, "2t-1": 2 * tile - 1,
+         "2t+1": 2 * tile + 1, "2**20": 1 << 20, "2**22": 1 << 22}[at]
+    cols, doc_id = scan_edge_case(kind, n, tile, seed=n, wide=wide)
+    assert kernels._cuda.scan_tiles(n) == -(-n // tile)
+    _scan_both(_torch(cols, cuda_device),
+               torch.from_numpy(doc_id).to(cuda_device),
+               check_kernels=at in ("+1", "2**20"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 2049, 1 << 20])
+@pytest.mark.parametrize("which", ["client", "doc_id", "all"])
+def test_conflict_scan_unaligned_views(cuda_device, hang_guard, which, n):
+    """Columns that are views one element into a larger tensor (8-byte but
+    not 16-byte aligned), one of them or all: the kernel's scalar loads
+    give what the plain version does."""
+    cols, doc_id = scan_case(n + 5, n, max(1, n // 300), 0)
+    ts = list(_torch(cols, cuda_device))
+    doc = torch.from_numpy(doc_id).to(cuda_device)
+
+    def shifted(t):
+        wide = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        wide[1:] = t
+        view = wide[1:]
+        assert view.is_contiguous() and view.data_ptr() % 16 == 8
+        return view
+
+    if which in ("client", "all"):
+        ts[0] = shifted(ts[0])
+    if which == "all":
+        ts[1:] = [shifted(t) for t in ts[1:]]
+    if which in ("doc_id", "all"):
+        doc = shifted(doc)
+    _scan_both(ts, doc, check_kernels=False)
+
+
+@pytest.mark.cuda
+def test_conflict_scan_two_streams(cuda_device, hang_guard):
+    """K12 enqueued on two streams in turn, neither waiting on the other,
+    at several tile counts: each stream keeps its own scratch, every
+    result equals the plain version and each scratch is zero after."""
+    cases = []
+    for i, n in enumerate((1 << 20, 5000, 3 * (1 << 18) + 7)):
+        cols, doc_id = scan_case(90 + i, n, max(1, n // 300), 0)
+        ts = _torch(cols, cuda_device)
+        doc = torch.from_numpy(doc_id).to(cuda_device)
+        cases.append((ts, doc, kernels.conflict_scan_plain(*ts, doc)))
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for i in range(24):
+        k = i % 2
+        ts, doc, _ref = cases[i % 3]
+        with torch.cuda.stream(streams[k]):
+            outs.append((i % 3, kernels.conflict_scan(*ts, doc)))
+    torch.cuda.synchronize()
+    dev = cases[0][1].device
+    made = [kernels._scan_scratch_by_stream[(dev, s.cuda_stream)]
+            for s in streams]
+    assert made[0].data_ptr() != made[1].data_ptr()
+    for c, got in outs:
+        for r, g in zip(cases[c][2], got):
+            assert torch.equal(r, g)
+    for buf in made:
+        assert not bool(buf.any())
+
+
+@pytest.mark.cuda
+def test_conflict_scan_graph_replay(cuda_device, hang_guard):
+    """50 chunk calls captured in one CUDA graph and replayed three times,
+    and a per-doc call beside them: the scratch left zero by each launch
+    is what the next finds, so every replayed result equals the plain
+    version."""
+    n = 3 * (1 << 18) + 11
+    cols, doc_id = scan_case(77, n, 900, 0)
     ts = _torch(cols, cuda_device)
     doc = torch.from_numpy(doc_id).to(cuda_device)
-    for d, key in ((None, "conflict_scan"), (doc, "conflict_scan_chunk")):
-        ref = kernels.conflict_scan_plain(*ts, d)
-        before = kernels.launches[key]
-        got = kernels.conflict_scan(*ts, d)
+    ref = kernels.conflict_scan_plain(*ts, doc)
+    small = [t[:64] for t in ts]
+    ref_small = kernels.conflict_scan_plain(*small)
+    # a wrapper's first call at a signature synchronises (the kernel
+    # profiler times its compile), which a capture may not
+    kernels.conflict_scan(*ts, doc)
+    kernels.conflict_scan(*small)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    outs = []
+    with torch.cuda.graph(graph):
+        for i in range(50):
+            outs.append(kernels.conflict_scan(*ts, doc) if i % 10
+                        else kernels.conflict_scan(*small))
+    for _ in range(3):
+        for out in outs:
+            for t in out:
+                t.fill_(0)
+        graph.replay()
         torch.cuda.synchronize()
-        assert kernels.launches[key] == before + 1
-        for r, g in zip(ref, got):
-            assert r.dtype == g.dtype and torch.equal(r, g), key
+        for i, out in enumerate(outs):
+            for r, g in zip(ref if i % 10 else ref_small, out):
+                assert torch.equal(r, g), i
+
+
+@pytest.mark.cuda
+def test_conflict_scan_checks(cuda_device):
+    """The wrapper's one check pass: a wrong dtype raises ``TypeError``,
+    a 2-D or strided column and a length that differs ``ValueError``,
+    before any launch."""
+    cols, doc_id = scan_case(5, 300, 3, 0)
+    ts = list(_torch(cols, cuda_device))
+    doc = torch.from_numpy(doc_id).to(cuda_device)
+    before = dict(kernels.launches)
+    for bad, err in ((ts[2].int(), TypeError), (ts[2].view(3, 100), ValueError),
+                     (torch.cat([ts[2], ts[2]])[::2], ValueError),
+                     (ts[2][:299], ValueError)):
+        with pytest.raises(err):
+            kernels.conflict_scan(*ts[:2], bad, *ts[3:], doc)
+    with pytest.raises(TypeError):
+        kernels.conflict_scan(*ts, doc.int())
+    with pytest.raises(ValueError):
+        kernels.conflict_scan(*ts, doc.cpu())
+    assert kernels.launches == before
 
 
 @pytest.mark.cuda

@@ -67,7 +67,7 @@ _ENTRIES = {
     "ytpu_smem_optin": ("yata", [_vp, _vp]),
     "ytpu_yata_occupancy": ("yata", [_int] * 3 + [_vp, _vp]),
     "ytpu_apply_plan_shared": ("apply_lanes", [_vp] * 4 + [_int] * 6 + [_vp]),
-    "ytpu_conflict_scan": ("conflict_scan", [_vp] * 12 + [_i64, _vp]),
+    "ytpu_conflict_scan": ("conflict_scan", [_vp] * 10 + [_i64, _vp]),
     "ytpu_anchor_lookup_sharded": ("anchor_lookup", [_vp, _int, _i64, _vp]),
     "ytpu_shard_fold": ("shard_fold", [_vp, _int, _i64, _int, _vp, _vp]),
 }
@@ -92,6 +92,31 @@ LEVELS_ROW = 17
 # and the keys of that sample (kSample in the source)
 LOOKUP_STAGE_MIN = 1 << 13
 LOOKUP_SAMPLE = 128
+# K12 (csrc/conflict_scan.cu): threads a block (kThreads), lanes a thread
+# (kLanes), the int64 words in front of a scratch's status words (kHead,
+# zero between launches) and the alignment of the output buffer's parts
+# (kAlign)
+SCAN_THREADS = 256
+SCAN_LANES = 8
+SCAN_HEAD = 32
+SCAN_ALIGN = 16
+
+
+def scan_tiles(n: int) -> int:
+    """K12's tiles over ``n`` lanes."""
+    return -(-n // (SCAN_THREADS * SCAN_LANES))
+
+
+def scan_layout(n: int) -> tuple[int, int, int]:
+    """K12's output buffer over ``n`` lanes: ``(left_at, right_at,
+    nbytes)``; run_id (int64) fills its first ``8 * n`` bytes, left and
+    right (a byte a lane) start at the byte offsets given, each a multiple
+    of :data:`SCAN_ALIGN`."""
+    a = SCAN_ALIGN
+    left_at = -(-8 * n // a) * a
+    span = -(-n // a) * a
+    return left_at, left_at + span, left_at + 2 * span
+
 
 class KernelError(RuntimeError):
     """A CUDA kernel could not be built, loaded or launched, or a kernel
@@ -367,13 +392,16 @@ def apply_plan_shared(lanes, right, deleted, starts, k_l, k_h, k_d) -> None:
           _p(deleted), _p(starts), b, n1, starts.shape[1], k_l, k_h, k_d)
 
 
-def conflict_scan(doc_id, cols, left, right, run_id, tile_sum) -> None:
+def conflict_scan(doc_id, cols, out, scratch, n: int) -> None:
     """``cols``: client, clock, length, o_cl, o_ck, r_cl, r_ck; ``doc_id``
-    None for the per-doc variant."""
-    n = left.shape[0]
-    doc = _opt(doc_id)
-    _call("ytpu_conflict_scan", left.device, doc, *(_p(c) for c in cols),
-          _p(left), _p(right), _p(run_id), _p(tile_sum), n)
+    None for the per-doc form; ``out``: the :func:`scan_layout` buffer;
+    ``scratch``: :data:`SCAN_HEAD` + :func:`scan_tiles` zeroed int64 of
+    the current stream, None for one tile."""
+    client, clock, length, o_cl, o_ck, r_cl, r_ck = cols
+    _call("ytpu_conflict_scan", out.device, _opt(doc_id), client.data_ptr(),
+          clock.data_ptr(), length.data_ptr(), o_cl.data_ptr(),
+          o_ck.data_ptr(), r_cl.data_ptr(), r_ck.data_ptr(), out.data_ptr(),
+          _opt(scratch), n)
 
 
 def anchor_lookup(desc: list, device: torch.device,

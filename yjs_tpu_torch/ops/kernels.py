@@ -1456,7 +1456,8 @@ def _run_padded(device, fn, n_out: int, *padded):
     return tuple(t[:n_out].cpu().numpy() for t in out)
 
 
-_SCAN_COLS = ("client", "clock", "length", "o_cl", "o_ck", "r_cl", "r_ck")
+_SCAN_NAMES = ("client", "clock", "length", "o_cl", "o_ck", "r_cl", "r_ck",
+               "doc_id")
 
 
 def conflict_scan_plain(client, clock, length, o_cl, o_ck, r_cl, r_ck,
@@ -1480,6 +1481,31 @@ def conflict_scan_plain(client, clock, length, o_cl, o_ck, r_cl, r_ck,
     return left, right, run_id
 
 
+# K12's scratch, one a device and stream: {(device, stream): int64
+# tensor}, the ticket, done-count and status words of csrc/conflict_scan.cu,
+# zero between launches (each launch's last block clears them).  Keyed by
+# stream as K1's is.  A scratch that grows is kept, not freed: a CUDA graph
+# captured on it still launches on it.
+_scan_scratch_by_stream: dict = {}
+_scan_scratch_retired: list = []
+
+
+def _scan_scratch(dev, tiles: int) -> torch.Tensor:
+    """The K12 scratch of ``dev``'s current stream with room for
+    ``tiles`` status words, grown (to a power of two, zeroed) when it has
+    less."""
+    key = (dev, _stream_key(dev))
+    need = _cuda.SCAN_HEAD + tiles
+    buf = _scan_scratch_by_stream.get(key)
+    if buf is None or buf.numel() < need:
+        if buf is not None:
+            _scan_scratch_retired.append(buf)
+        buf = torch.zeros(1 << (need - 1).bit_length(), dtype=torch.int64,
+                          device=dev)
+        _scan_scratch_by_stream[key] = buf
+    return buf
+
+
 @profiled("conflict_scan")
 def conflict_scan(client, clock, length, o_cl, o_ck, r_cl, r_ck,
                   doc_id=None):
@@ -1491,26 +1517,64 @@ def conflict_scan(client, clock, length, o_cl, o_ck, r_cl, r_ck,
     boundary.
 
     All inputs are ``[n]`` int64 (padding lanes: client and doc -1).
-    Returns ``(left bool, right bool, run_id int64)``."""
+    Returns ``(left bool, right bool, run_id int64)``; on CUDA the three
+    are views of one buffer (:func:`_cuda.scan_layout`) that one launch
+    fills."""
     cols = (client, clock, length, o_cl, o_ck, r_cl, r_ck)
     ins = cols if doc_id is None else (*cols, doc_id)
-    if not _on_cuda(*ins):
-        return conflict_scan_plain(*cols, doc_id)
-    n = client.shape[0]
-    for t, name in zip(ins, _SCAN_COLS + ("doc_id",)):
-        _check(t, name, (torch.int64,), 1)
-        if t.shape[0] != n:
-            raise ValueError(f"{name} has {t.shape[0]} lanes, client {n}")
     dev = client.device
-    left = torch.empty(n, dtype=torch.bool, device=dev)
-    right = torch.empty(n, dtype=torch.bool, device=dev)
-    run_id = torch.empty(n, dtype=torch.int64, device=dev)
+    if dev.type != "cuda":
+        for t in ins:
+            if t.device != dev:
+                raise _scan_error(ins)
+        if dev.type != "cpu":
+            raise _unsupported(dev)
+        return conflict_scan_plain(*cols, doc_id)
+    # one check pass; _scan_error names the fault
+    shape = client.shape
+    if len(shape) != 1:
+        raise _scan_error(ins)
+    for t in ins:
+        if (t.dtype is not torch.int64 or t.shape != shape
+                or not t.is_contiguous() or t.device != dev):
+            raise _scan_error(ins)
+    n = shape[0]
+    left_at, right_at, nbytes = _cuda.scan_layout(n)
+    out = torch.empty(nbytes >> 3, dtype=torch.int64, device=dev)
+    flags = out.view(torch.bool)
     if n:
-        tiles = torch.empty(-(-n // 1024), dtype=torch.int64, device=dev)
-        _cuda.conflict_scan(doc_id, cols, left, right, run_id, tiles)
+        tiles = _cuda.scan_tiles(n)
+        _cuda.conflict_scan(doc_id, cols, out,
+                            _scan_scratch(dev, tiles) if tiles > 1 else None,
+                            n)
         launches["conflict_scan" if doc_id is None
                  else "conflict_scan_chunk"] += 1
-    return left, right, run_id
+    return flags[left_at : left_at + n], flags[right_at : right_at + n], out[:n]
+
+
+def _scan_error(ins) -> Exception:
+    """The error for the first of K12's columns ``ins`` that is on another
+    device than client, or (on CUDA) not a contiguous 1-D int64 tensor as
+    long as client: ``TypeError`` for a dtype, else ``ValueError``."""
+    dev = ins[0].device
+    n = ins[0].shape[0] if ins[0].dim() == 1 else None
+    for t, name in zip(ins, _SCAN_NAMES):
+        if t.device != dev:
+            return ValueError(
+                f"kernel inputs must all be on the CPU or on one CUDA "
+                f"device, got {name} on {t.device} and client on {dev}")
+        if dev.type != "cuda":
+            continue
+        if t.dtype != torch.int64:
+            return TypeError(f"{name}: dtype {t.dtype} not in "
+                             f"{(torch.int64,)}")
+        if t.dim() != 1 or not t.is_contiguous():
+            return ValueError(f"{name}: a contiguous 1-D tensor, got "
+                              f"{t.dim()}-D")
+        if t.shape[0] != n:
+            return ValueError(f"{name} has {t.shape[0]} lanes, client {n}")
+    return ValueError("K12's columns must be contiguous 1-D int64 tensors "
+                      "of one length on one device")
 
 
 def anchor_lookup_plain(flat_key, q_key):
