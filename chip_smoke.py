@@ -10,7 +10,7 @@ script exits non-zero:
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and
    power limit;
-2. build: the native plan core (g++) and the ten CUDA sources (one
+2. build: the native plan core (g++) and the eleven CUDA sources (one
    nvcc per source, all at once), with build seconds, each kernel's
    registers and spills, and each YATA step instantiation's shared,
    global and generic loads and stores (``cuobjdump -sass``);
@@ -157,6 +157,14 @@ script exits non-zero:
    with its shared-memory sample staged and not staged, in turns, each
    from 50 launches replayed back to back from a CUDA graph
    (``graph_ms_staged``, ``graph_ms_unstaged``);
+   K7a's two rows (``apply_plan_shared`` at the broadcast path's 4096
+   docs, ``apply_plan_shared_b4`` at the B4 replay's 16384, held to the
+   plain version at 1024) and K10's row add ``launches_a_call`` and
+   ``kernels_a_call`` (checked: one launch, one kernel) and ``host_us``;
+   K7a's add ``library_ms`` (``index_put_`` x3 on the in-bound lanes,
+   filtered once outside the timed call) and ``docs_a_block``; K10's
+   ``bound_ms`` counts row_clock only where a row is needed (the kernel
+   reads no other), and ``bound_ms_all_read`` every clock;
    K12's two rows (chunk and per doc) are held to the plain version on
    the planner's captured input, on a doc at every tile edge and on one
    chained run through 2**20 lanes, and add ``kernels_a_call`` (checked:
@@ -1448,6 +1456,102 @@ def broadcast_path(trace: bytes, n_docs: int = N_BROADCAST_DOCS,
     }
 
 
+# -- phase 7b: the B4 broadcast replay (bench.py's headline shape) ---------------
+
+
+N_B4_DOCS = 16384  # bench.py's YTPU_BENCH_DOCS
+N_B4_CHECKED = 1024
+B4 = ROOT / "tests" / "fixtures" / "b4_trace.bin"
+
+
+def b4_plan() -> dict:
+    """The B4 fixture planned once by the port's native mirror and packed
+    as ``bench.py`` packs its B4 replay: each section padded to a power
+    of two (links and deletes at least 64, heads 8), padding one past the
+    table (``cap + 1``)."""
+    from yjs_tpu_torch.ops.native_mirror import NativeMirror
+
+    mirror = NativeMirror("text")
+    t0 = time.perf_counter()
+    mirror.ingest(B4.read_bytes(), False)
+    plan = mirror.prepare_step()
+    t_plan = time.perf_counter() - t0
+    n = mirror.n_rows
+    cap = max(64, n)
+    s1 = max(8, mirror.n_segs) + 1
+
+    def pad(idx, vals, minimum, oob):
+        k = len(idx)
+        i = np.full(max(minimum, 1 << max(0, (k - 1).bit_length())), oob,
+                    np.int32)
+        i[:k] = np.asarray(idx, np.int32)
+        v = np.full(len(i), -1, np.int32)
+        if vals is not None:
+            v[:k] = np.asarray(vals, np.int32)
+        return i, v
+
+    rows, vals = pad(plan.link_rows, plan.link_vals, 64, cap + 1)
+    segs, hvals = pad(plan.head_segs, plan.head_vals, 8, s1)
+    dels, _ = pad(plan.delete_rows, None, 64, cap + 1)
+    return {"mirror": mirror, "t_plan": t_plan, "n": n, "cap": cap, "s1": s1,
+            "lanes": np.concatenate([rows, vals, segs, hvals, dels]),
+            "k_l": len(rows), "k_h": len(segs), "k_d": len(dels)}
+
+
+def b4_path(n_docs: int = N_B4_DOCS, device: str = "cuda") -> dict:
+    """``bench.py``'s B4 replay on the port: the fixture's 182k inserts
+    and 77k deletes planned once, fanned out over ``n_docs`` fresh docs by
+    ``apply_plan_shared`` (K7a) in one call; every doc's tables equal doc
+    0's, doc 0's equal the plain version's, and doc 0's text (ranked on
+    the card) has the fixture's length and sha256."""
+    import hashlib
+
+    from yjs_tpu_torch.ops import kernels as K
+    from yjs_tpu_torch.ops.engine import visible_text
+
+    dev = torch.device(device)
+    sp = b4_plan()
+    cap, s1, n = sp["cap"], sp["s1"], sp["n"]
+    k_l, k_h, k_d = sp["k_l"], sp["k_h"], sp["k_d"]
+    lanes = torch.from_numpy(sp["lanes"]).to(dev)
+
+    def fresh(b):
+        return (torch.full((b, cap + 1), K.NULL, dtype=torch.int32, device=dev),
+                torch.zeros((b, cap + 1), dtype=torch.bool, device=dev),
+                torch.full((b, s1), K.NULL, dtype=torch.int32, device=dev))
+
+    t0 = time.perf_counter()
+    out = K.apply_plan_shared(fresh(n_docs), lanes, k_l, k_h, k_d)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    for name, t in zip(("right", "deleted", "starts"), out):
+        check(bool((t == t[:1]).all()), f"B4: a doc's {name} differs from doc 0's")
+    ref = K.apply_plan_shared_plain(fresh(1), lanes, k_l, k_h, k_d)
+    for name, r, t in zip(("right", "deleted", "starts"), ref, out):
+        check(torch.equal(r[0], t[0]), f"B4: doc 0's {name} differs from the plain version's")
+    m = sp["mirror"]
+    text_seg = m.segments[("text", None, K.NULL)]
+    valid = torch.zeros((1, cap + 1), dtype=torch.bool)
+    valid[0, :n] = torch.from_numpy(np.asarray(m.row_seg) == text_seg)
+    d = K.list_ranks(out[0][:1].contiguous(), valid.to(dev))[0].cpu().numpy()
+    rows = np.nonzero(d >= 0)[0]
+    rows = rows[np.argsort(-d[rows], kind="stable")]
+    text = visible_text(m, rows, out[1][0].cpu().numpy()[rows])
+    meta = json.loads(B4.with_suffix(".json").read_text())
+    check(len(text) == meta["text_len"]
+          and hashlib.sha256(text.encode()).hexdigest() == meta["text_sha256"],
+          "B4: doc 0's text differs from the fixture's")
+    log(f"[b4] the B4 fixture ({meta['n_inserts']} inserts, {meta['n_deletes']} "
+        f"deletes; {n} rows) planned once by the native mirror in "
+        f"{sp['t_plan']:.3f}s, fanned out over {n_docs} docs by one "
+        f"apply_plan_shared call ({t_step * 1e3:.3f} ms host wall with its "
+        f"synchronise); every doc equals doc 0, doc 0 the plain version, its "
+        f"text ({len(text)} chars) the fixture's sha256")
+    del out, ref
+    return {"apply_plan_shared": (fresh, lanes, k_l, k_h, k_d),
+            "t_plan": sp["t_plan"], "n": n}
+
+
 # -- phase 8 ----------------------------------------------------------------------
 
 
@@ -2599,43 +2703,127 @@ def shared_lane_writes(lanes: torch.Tensor, k_l: int, k_h: int, n1: int,
             inb(v[2 * k_l + 2 * k_h :], n1))
 
 
-def broadcast_rows(bfig: dict, b_launches: dict) -> list[dict]:
+def shared_index_put(lanes: torch.Tensor, k_l: int, k_h: int, n1: int,
+                     s1: int):
+    """K7a's library yardstick: ``index_put_`` x3 (``right[:, rows] =
+    vals``, ``starts[:, segs] = hvals``, ``deleted[:, dels] = True``) on
+    the in-bound lanes of one shared delta, filtered (negative targets
+    wrapped) once here, outside the timed call.  Returns ``put(dyn)``."""
+    host = lanes.long().cpu().numpy()
+    o = 2 * k_l + 2 * k_h
+
+    def inb(x, n):
+        x = np.where(x < 0, x + n, x)
+        keep = (x >= 0) & (x < n)
+        return (torch.from_numpy(x[keep]).to(lanes.device),
+                torch.from_numpy(keep).to(lanes.device))
+
+    rows, keep = inb(host[:k_l], n1)
+    vals = lanes[k_l : 2 * k_l][keep]
+    segs, hkeep = inb(host[2 * k_l : 2 * k_l + k_h], s1)
+    hvals = lanes[2 * k_l + k_h : o][hkeep]
+    dels, _ = inb(host[o:], n1)
+
+    def put(dyn):
+        dyn[0][:, rows] = vals
+        dyn[2][:, segs] = hvals
+        dyn[1][:, dels] = True
+        return dyn
+
+    return put
+
+
+def one_kernel_a_call(call, kernel: str, name: str):
+    """The kernels one ``call()`` launches by the profiler (traced again
+    when a trace records none), checked to be ``kernel`` alone, at most
+    once (a trace may lose an event, never add one)."""
+    for _ in range(5):
+        a_call = kernels_a_call(call, n=20)
+        if a_call is not None:
+            break
+    check(a_call is not None and len(a_call) == 1
+          and kernel in next(iter(a_call))
+          and 0 < next(iter(a_call.values())) <= 1,
+          f"{name} launched {a_call} a call, not one kernel")
+    return a_call
+
+
+def shared_row(fresh, lanes, k_l: int, k_h: int, k_d: int, b: int,
+               b_check: int, launches: int, path: str, name: str) -> dict:
+    """K7a against its plain version on ``b_check`` fresh docs, and its
+    times over ``b`` docs: events, device, plain, ``index_put_`` x3,
+    host split, kernels and launches a call (checked: one)."""
+    from yjs_tpu_torch.ops import kernels as K
+
+    got = K.apply_plan_shared(fresh(b_check), lanes, k_l, k_h, k_d)
+    ref = K.apply_plan_shared_plain(fresh(b_check), lanes, k_l, k_h, k_d)
+    err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+    base = fresh(b)
+    n1, s1 = base[0].shape[1], base[2].shape[1]
+    put = shared_index_put(lanes, k_l, k_h, n1, s1)
+    lib = put(fresh(b_check))
+    check(all(torch.equal(x, r) for x, r in zip(lib, ref)),
+          f"{name}: index_put_ x3 disagrees with the plain version")
+    del got, ref, lib
+
+    def call():
+        return K.apply_plan_shared(base, lanes, k_l, k_h, k_d)
+
+    a_launch = launches_a_call(K, call)
+    check(a_launch == {"apply_plan_shared": 1},
+          f"{name}: launches {a_launch} in one call")
+    a_call = one_kernel_a_call(call, "apply_shared_kernel", name)
+    w_l, w_h, w_d = shared_lane_writes(lanes, k_l, k_h, n1, s1)
+    return {
+        "name": name, "route": "cuda",
+        "source": "yjs_tpu_torch/csrc/apply_shared.cu",
+        "replaces": "yjs_tpu/ops/kernels.py:449",
+        "shape": f"B={b} N+1={n1} S+1={s1} lanes={lanes.numel()} "
+                 f"({k_l}, {k_h}, {k_d}) shared, in bounds ({w_l}, {w_h}, "
+                 f"{w_d}); checked at B={b_check}",
+        "path": path, "launches": launches, "max_abs_err": err,
+        "launches_a_call": a_launch, "kernels_a_call": a_call,
+        "docs_a_block": K.shared_docs_a_block(
+            b, n1, k_l, k_h, k_d, torch.cuda.get_device_properties(
+                base[0].device).multi_processor_count),
+        "ms": cuda_ms(call), "device_ms": device_ms(call),
+        "plain_ms": cuda_ms(
+            lambda: K.apply_plan_shared_plain(base, lanes, k_l, k_h, k_d), 3),
+        "host_us": host_split(call),
+        "bound_ms": (lanes.nbytes + b * (4 * w_l + 4 * w_h + w_d))
+        / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": cuda_ms(lambda: put(base)),
+    }
+
+
+def broadcast_rows(bfig: dict, b_launches: dict, b4fig: dict,
+                   b4_launches: dict) -> list[dict]:
     """K7a and K7b against their plain versions at the broadcast path's
     4096-doc fan-out, each timed beside K1 or K6 on its inputs replicated
-    per doc (``replicated_ms``; K7a's ``replicated_device_ms`` too)."""
+    per doc (``replicated_ms``; K7a's ``replicated_device_ms`` too), and
+    K7a at the B4 replay's 16384 docs (``apply_plan_shared_b4``)."""
     from yjs_tpu_torch.ops import kernels as K
 
     rows = []
     tables, lanes, k_l, k_h, k_d = bfig["apply_plan_shared"]
-    b, n1 = tables[0].shape
-    s1 = tables[2].shape[1]
-    got = K.apply_plan_shared(_clone(tables), lanes, k_l, k_h, k_d)
-    ref = K.apply_plan_shared_plain(_clone(tables), lanes, k_l, k_h, k_d)
-    err = max(max_abs_err(g, r) for g, r in zip(got, ref))
-    base = _clone(tables)
-    ms = cuda_ms(lambda: K.apply_plan_shared(base, lanes, k_l, k_h, k_d))
-    dev_ms = device_ms(lambda: K.apply_plan_shared(base, lanes, k_l, k_h, k_d))
-    plain_ms = cuda_ms(
-        lambda: K.apply_plan_shared_plain(base, lanes, k_l, k_h, k_d), 5)
-    w_l, w_h, w_d = shared_lane_writes(lanes, k_l, k_h, n1, s1)
+    b = tables[0].shape[0]
+    row = shared_row(lambda docs: tuple(t[:docs].clone() for t in tables),
+                     lanes, k_l, k_h, k_d, b, b,
+                     b_launches["apply_plan_shared"], "broadcast",
+                     "apply_plan_shared")
     # K1 on the same delta replicated per doc, the unshared yardstick
     rtables, rlanes, *rwidths = bfig["apply_lanes_replicated"]
     rbase = _clone(rtables)
-    rep_ms = cuda_ms(lambda: K.apply_lanes(rbase, rlanes, *rwidths))
-    rep_dev = device_ms(lambda: K.apply_lanes(rbase, rlanes, *rwidths))
-    rows.append({
-        "name": "apply_plan_shared", "route": "cuda",
-        "source": "yjs_tpu_torch/csrc/apply_lanes.cu",
-        "replaces": "yjs_tpu/ops/kernels.py:449",
-        "shape": f"B={b} N+1={n1} S+1={s1} lanes={lanes.numel()} shared",
-        "path": "broadcast", "launches": b_launches["apply_plan_shared"],
-        "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": (lanes.nbytes + b * (4 * w_l + 4 * w_h + w_d))
-        / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes", "library_ms": None,
-        "replicated_ms": rep_ms, "replicated_device_ms": rep_dev,
-    })
+    row["replicated_ms"] = cuda_ms(lambda: K.apply_lanes(rbase, rlanes, *rwidths))
+    row["replicated_device_ms"] = device_ms(
+        lambda: K.apply_lanes(rbase, rlanes, *rwidths))
+    rows.append(row)
+    # the B4 replay: held at N_B4_CHECKED docs, timed at N_B4_DOCS
+    fresh, lanes, k_l, k_h, k_d = b4fig["apply_plan_shared"]
+    rows.append(shared_row(fresh, lanes, k_l, k_h, k_d, N_B4_DOCS,
+                           N_B4_CHECKED, b4_launches["apply_plan_shared"],
+                           "b4", "apply_plan_shared_b4"))
+    torch.cuda.empty_cache()
 
     statics, dyn, splits, lv, dels, scratch = bfig["batch_step_levels_shared"]
     b, n1 = dyn[0].shape
@@ -2707,7 +2895,8 @@ def broadcast_rows(bfig: dict, b_launches: dict) -> list[dict]:
 def kernel_phase(seen: dict, launches: dict, pseen: dict,
                  plaunches: dict, yseen: dict, ylaunches: dict,
                  plseen: dict, pl_launches: dict, bfig: dict,
-                 b_launches: dict, mfig: dict, m_launches: dict) -> list[dict]:
+                 b_launches: dict, b4fig: dict, b4_launches: dict,
+                 mfig: dict, m_launches: dict) -> list[dict]:
     """Each kernel against its plain version on the largest input its
     path gave it (tables as they were before that call); ``launches`` and
     ``plaunches`` are the main and the provider path's counts."""
@@ -2878,24 +3067,38 @@ def kernel_phase(seen: dict, launches: dict, pseen: dict,
     got = K.diff_mask_kernel(*args)
     ref = K.diff_mask_kernel_plain(*args)
     err = max(max_abs_err(g, r) for g, r in zip(got, ref))
-    ms = cuda_ms(lambda: K.diff_mask_kernel(*args))
-    dev_ms = device_ms(lambda: K.diff_mask_kernel(*args))
+
+    def k10():
+        return K.diff_mask_kernel(*args)
+
+    a_launch = launches_a_call(K, k10)
+    check(a_launch == {"diff_mask": 1}, f"diff_mask: launches {a_launch} in one call")
+    a_call = one_kernel_a_call(k10, "diff_mask_kernel", "diff_mask")
+    ms = cuda_ms(k10)
+    dev_ms = device_ms(k10)
     plain_ms = cuda_ms(lambda: K.diff_mask_kernel_plain(*args))
-    nbytes = (row_slot.nbytes + row_clock.nbytes + row_end.nbytes + sv.nbytes
-              + got[0].nbytes + got[1].nbytes)
+    # row_clock is read only where a row is needed
+    ins = row_slot.nbytes + row_end.nbytes + sv.nbytes
+    outs = got[0].nbytes + got[1].nbytes
+    needed = int(got[0].sum())
     rows.append({
         "name": "diff_mask", "route": "cuda",
         "source": "yjs_tpu_torch/csrc/diff_mask.cu",
         "replaces": "yjs_tpu/ops/kernels.py:724",
-        "shape": f"B={b} N={n} n_slots={sv.shape[1]}", "path": "provider",
+        "shape": f"B={b} N={n} n_slots={sv.shape[1]} needed rows={needed}",
+        "path": "provider",
         "launches": plaunches["diff_mask"], "max_abs_err": err,
+        "launches_a_call": a_launch, "kernels_a_call": a_call,
         "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": None,
+        "host_us": host_split(k10),
+        "bound_ms": (ins + 4 * needed + outs) / HBM_BYTES_PER_S * 1e3,
+        "bound_ms_all_read": (ins + row_clock.nbytes + outs)
+        / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None,
     })
     rows.extend(yata_rows(yseen, ylaunches))
     rows.extend(planner_rows(plseen, pl_launches))
-    rows.extend(broadcast_rows(bfig, b_launches))
+    rows.extend(broadcast_rows(bfig, b_launches, b4fig, b4_launches))
     rows.extend(mesh_rows(mfig, m_launches, plseen))
     torch.cuda.synchronize()
     # comparison and timing launches are not the main path's
@@ -3022,6 +3225,16 @@ def main() -> int:
     for name, _size in BROADCAST_KERNELS:
         check(b_launches[name] == 1, f"{name} did not launch once")
 
+    # the B4 replay: bench.py's headline shape, one K7a call
+    K.reset_launches()
+    t0 = time.perf_counter()
+    b4fig = b4_path()
+    torch.cuda.synchronize()
+    b4_launches = dict(K.launches)
+    log(f"[b4] wall {time.perf_counter() - t0:.1f}s; launches {b4_launches}")
+    check(b4_launches["apply_plan_shared"] == 1,
+          "the B4 replay did not take one apply_plan_shared launch")
+
     # the doc-sharded mesh: four shards on the one card
     K.reset_launches()
     t0 = time.perf_counter()
@@ -3035,7 +3248,7 @@ def main() -> int:
         del figures[name]
     rows = kernel_phase(cap.seen, launches, pcap.seen, plaunches, ycap.seen,
                         ylaunches, plcap.seen, pl_launches, bfig, b_launches,
-                        mfig, m_launches)
+                        b4fig, b4_launches, mfig, m_launches)
     log(json.dumps({"kernels": rows}))
     log(dev["smi"])
     print(json.dumps({"ok": True, "device": {

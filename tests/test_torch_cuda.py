@@ -682,6 +682,92 @@ def test_diff_mask_kernel_matches_plain(cuda_device, shape, wide):
         assert torch.equal(r, o)
 
 
+# K10 at its edges: N not a multiple of 4 (a thread's four rows cross
+# doc boundaries), one row a doc, B past a grid's y limit, the checkpoint's
+# empty state vectors, and state-vector rows past the block's staging
+DIFF_EDGE_SHAPES = [
+    (5, 1, 1), (7, 3, 2), (9, 5, 3), (4096, 1102, 3), (70_000, 3, 2),
+    (3, 1102, 3000),  # one doc's state vector past the staging limit
+    (2000, 1, 3),  # a block's 1024 docs x 3 slots past the staging limit
+]
+
+
+def diff_case(kind: str, seed: int, b: int, n: int, n_slots: int):
+    """One K10 case: ``sync_case``'s, its ``wide`` variant (``remote -
+    clock`` wraps), or the checkpoint's (``empty``: a zero remote state
+    vector, so every row with a slot is needed)."""
+    case = sync_case(seed, b, n, n_slots, wide=kind == "wide")
+    if kind == "empty":
+        case = (*case[:3], np.zeros_like(case[3]))
+    return case
+
+
+def unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.flatten())
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["seeded", "wide", "empty"])
+@pytest.mark.parametrize("shape", DIFF_EDGE_SHAPES)
+def test_diff_mask_kernel_edges(cuda_device, shape, kind):
+    b, n, n_slots = shape
+    case = diff_case(kind, 23 + n, b, n, n_slots)
+    args = _torch(case, cuda_device)
+    ref = kernels.diff_mask_kernel_plain(*args)
+    before = kernels.launches["diff_mask"]
+    got = kernels.diff_mask_kernel(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["diff_mask"] == before + 1
+    for r, o in zip(ref, got):
+        assert o.shape == (b, n) and torch.equal(r, o)
+    if kind == "empty":  # the checkpoint: every row with a slot
+        assert torch.equal(got[0].cpu(), torch.from_numpy(case[0] >= 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1, 2, 3])
+@pytest.mark.parametrize("shape", [(9, 5, 3), (64, 1102, 4)])
+def test_diff_mask_kernel_unaligned_views(cuda_device, shape, which):
+    """A column that starts off a 16-byte boundary takes the scalar
+    loads; the result is the same."""
+    b, n, n_slots = shape
+    args = list(_torch(sync_case(29 + n, b, n, n_slots), cuda_device))
+    args[which] = unaligned(args[which])
+    assert args[which].data_ptr() % 16 == 4
+    ref = kernels.diff_mask_kernel_plain(*args)
+    got = kernels.diff_mask_kernel(*args)
+    torch.cuda.synchronize()
+    for r, o in zip(ref, got):
+        assert torch.equal(r, o)
+
+
+@pytest.mark.cuda
+def test_diff_mask_kernel_output_views_and_checks(cuda_device):
+    """One buffer holds offset and needed (the layout of
+    ``_cuda.diff_layout``); wrong inputs raise before any launch."""
+    b, n = 6, 7
+    args = _torch(sync_case(3, b, n, 4), cuda_device)
+    needed, offset = kernels.diff_mask_kernel(*args)
+    at, _nbytes = kernels._cuda.diff_layout(b * n)
+    assert offset.untyped_storage().data_ptr() == \
+        needed.untyped_storage().data_ptr() == offset.data_ptr()
+    assert needed.data_ptr() == offset.data_ptr() + at
+    before = dict(kernels.launches)
+    for bad, err in ((args[0].long(), TypeError),
+                     (args[0][:, :5], ValueError),
+                     (args[0].t(), ValueError),
+                     (args[0].cpu(), ValueError)):
+        with pytest.raises(err):
+            kernels.diff_mask_kernel(bad, *args[1:])
+    with pytest.raises(ValueError):
+        kernels.diff_mask_kernel(*args[:3], args[3][:, :0])
+    assert kernels.launches == before
+
+
 @pytest.mark.cuda
 def test_provider_on_card_matches_cpu_twin(cuda_device, monkeypatch, tmp_path):
     """The default provider lives on the card; a reconnect storm through
@@ -1661,6 +1747,187 @@ def test_broadcast_kernels_match_plain_and_replicated(cuda_device, n_docs):
     for a, b in zip(trimmed(got_a, case["n"], case["n_segs"]),
                     trimmed(got_b, case["n"], case["n_segs"])):
         np.testing.assert_array_equal(a, b)
+
+
+def shared_edge_case(seed: int, b: int, n1: int, s1: int,
+                     live: tuple[int, int, int], pad: bool = True,
+                     kind: str = ""):
+    """One seeded K7a case: tables of ``b`` docs (``[b, n1]`` right links
+    and deleted marks, ``[b, s1]`` heads, seeded, so that untouched
+    entries are checked too) and one lanes vector with ``live`` = (links,
+    heads, deletes) real targets a section.
+
+    Real targets are unique within a section after JAX's wrap; about a
+    quarter are written in their negative form (counting from the end),
+    and up to two a section lie outside the table (dropped).  With
+    ``pad``, each section is padded to a power of two as
+    ``chip_smoke.shared_plan`` pads it: padding lanes target one past the
+    table's last column, padding values are NULL.  ``kind`` holds ``a``:
+    the delete targets are one run of neighbouring rows around the
+    table's middle, shuffled, so marks share 4-byte words; ``r``: the
+    link targets are one run in ascending order (the dropped ones among
+    them), as a fresh replay links its rows.  Returns ``(tables, lanes,
+    (k_l, k_h, k_d))``."""
+    g = np.random.default_rng(seed)
+
+    def section(width, k, runs=False, ordered=False):
+        k = min(k, width)
+        if runs or ordered:
+            start = (width - k) // 2
+            r = np.arange(start, start + k)
+            if not ordered:
+                g.shuffle(r)
+        else:
+            r = g.choice(width, size=k, replace=False)
+        r = r.astype(np.int64)
+        neg = g.random(k) < 0.25
+        r[neg] -= width
+        wild = np.array([width + 3, -(width + 5)][: 2 if k >= 2 else k],
+                        np.int64)
+        if ordered:
+            r = np.insert(r, g.integers(0, len(r) + 1, size=len(wild)), wild)
+        else:
+            r = np.concatenate([r, wild])
+            g.shuffle(r)
+        if pad and len(r):
+            r = np.concatenate([r, np.full(_bucket(len(r), 1) - len(r),
+                                           width)])
+        return r
+
+    rows = section(n1, live[0], ordered="r" in kind)
+    segs = section(s1, live[1])
+    dels = section(n1, live[2], runs="a" in kind)
+
+    def vals(r, oob):
+        v = g.integers(-1, n1 - 1, size=len(r))
+        v[r == oob] = NULL
+        return v
+
+    lanes = np.concatenate([rows, vals(rows, n1), segs, vals(segs, s1), dels])
+    tables = (g.integers(-1, n1 - 1, (b, n1)).astype(np.int32),
+              g.random((b, n1)) < 0.2,
+              g.integers(-1, n1 - 1, (b, s1)).astype(np.int32))
+    return tables, lanes.astype(np.int32), (len(rows), len(segs), len(dels))
+
+
+# (b, n1, s1, live links, heads, deletes, kind): widths not a multiple of
+# 4 (rows at every 4-byte phase), each section empty in turn, links as one
+# run and scattered, several tiles a section, B past a grid's y limit,
+# marks across a delete tile's edge (65,504 rows)
+SHARED_EDGES = [
+    (1, 1, 1, (1, 1, 1), ""), (3, 3, 2, (2, 1, 2), "a"),
+    (5, 5, 3, (4, 2, 3), "ar"), (7, 9373, 9, (0, 3, 40), "a"),
+    (6, 1501, 9, (900, 0, 300), ""), (4, 1501, 9, (700, 2, 0), "ar"),
+    (9, 9373, 9, (9372, 1, 4216), "r"),
+    (17, 20000, 65, (5000, 60, 4500), "a"), (70_000, 6, 3, (5, 2, 4), "ar"),
+    (3, 70_001, 9, (3000, 4, 2500), ""),
+    (2, 131_011, 9, (6000, 1, 3000), "ar"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [True, False])
+@pytest.mark.parametrize("edge", SHARED_EDGES)
+def test_apply_plan_shared_kernel_edges(cuda_device, hang_guard, edge, pad):
+    b, n1, s1, live, kind = edge
+    tables, lanes, widths = shared_edge_case(n1 + b, b, n1, s1, live, pad,
+                                             kind)
+    lanes_t = torch.from_numpy(lanes).to(cuda_device)
+    ref = kernels.apply_plan_shared_plain(_torch(tables, cuda_device),
+                                          lanes_t, *widths)
+    before = kernels.launches["apply_plan_shared"]
+    got = kernels.apply_plan_shared(_torch(tables, cuda_device), lanes_t,
+                                    *widths)
+    torch.cuda.synchronize()
+    assert kernels.launches["apply_plan_shared"] == before + (
+        1 if sum(widths) else 0)
+    for r, o in zip(ref, got):
+        assert torch.equal(r, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("waves", [1, 4])
+def test_apply_plan_shared_on_the_b4_plan(cuda_device, hang_guard,
+                                          monkeypatch, waves):
+    """The B4 fixture planned once by the port's native mirror, padded as
+    the smoke pads it, over a few docs (and one doc a block or many)."""
+    from yjs_tpu_torch.ops.native_mirror import NativeMirror
+
+    sp = b4_plan(NativeMirror)
+    monkeypatch.setattr(kernels, "SHARED_WAVES", waves)
+    b = 37
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    fresh = yata_tables(b, sp["cap"], sp["s1"])
+    lanes = to(sp["lanes"])
+    widths = (sp["k_l"], sp["k_h"], sp["k_d"])
+    ref = kernels.apply_plan_shared_plain(_torch(fresh, cuda_device), lanes,
+                                          *widths)
+    got = kernels.apply_plan_shared(_torch(fresh, cuda_device), lanes,
+                                    *widths)
+    torch.cuda.synchronize()
+    for r, o in zip(ref, got):
+        assert torch.equal(r, o)
+    assert int(got[1][0].sum()) == len(sp["delete_rows"])
+
+
+def b4_plan(mirror_cls):
+    """The B4 fixture (``tests/fixtures/b4_trace.bin``) planned once by
+    ``mirror_cls`` and packed as ``bench.py``'s B4 replay packs it: each
+    section padded to a power of two (links and deletes at least 64,
+    heads 8), padding one past the table (``cap + 1``)."""
+    from pathlib import Path
+
+    update = (Path(__file__).resolve().parent / "fixtures"
+              / "b4_trace.bin").read_bytes()
+    mirror = mirror_cls("text")
+    mirror.ingest(update, False)
+    plan = mirror.prepare_step()
+    n = mirror.n_rows
+    cap = max(64, n)
+    s1 = max(8, mirror.n_segs) + 1
+
+    def pad(idx, vals, minimum, oob):
+        i = np.full(_bucket(max(1, len(idx)), minimum), oob, np.int32)
+        i[: len(idx)] = np.asarray(idx, np.int32)
+        v = np.full(len(i), NULL, np.int32)
+        if vals is not None:
+            v[: len(idx)] = np.asarray(vals, np.int32)
+        return i, v
+
+    rows, vals = pad(plan.link_rows, plan.link_vals, 64, cap + 1)
+    segs, hvals = pad(plan.head_segs, plan.head_vals, 8, s1)
+    dels, _ = pad(plan.delete_rows, None, 64, cap + 1)
+    return {
+        "lanes": np.concatenate([rows, vals, segs, hvals, dels]),
+        "k_l": len(rows), "k_h": len(segs), "k_d": len(dels), "n": n,
+        "cap": cap, "s1": s1, "delete_rows": np.asarray(plan.delete_rows),
+    }
+
+
+@pytest.mark.cuda
+def test_apply_plan_shared_checks(cuda_device):
+    """Wrong inputs raise before any launch; empty sections or no docs
+    launch nothing."""
+    tables, lanes, widths = shared_edge_case(5, 3, 40, 9, (10, 2, 5))
+    dyn = _torch(tables, cuda_device)
+    lanes_t = torch.from_numpy(lanes).to(cuda_device)
+    before = dict(kernels.launches)
+    k_l, k_h, k_d = widths
+    for bad_dyn, bad_lanes, w, err in (
+            (dyn, lanes_t.long(), widths, TypeError),
+            ((dyn[0], dyn[1].int(), dyn[2]), lanes_t, widths, TypeError),
+            (dyn, lanes_t[1:], widths, ValueError),
+            (dyn, lanes_t, (k_l + 1, k_h, k_d - 1), ValueError),
+            ((dyn[0].t(), dyn[1], dyn[2]), lanes_t, widths, ValueError),
+            ((dyn[0], dyn[1][:2], dyn[2]), lanes_t, widths, ValueError),
+            (dyn, lanes_t.cpu(), widths, ValueError)):
+        with pytest.raises(err):
+            kernels.apply_plan_shared(bad_dyn, bad_lanes, *w)
+    empty = torch.empty(0, dtype=torch.int32, device=cuda_device)
+    kernels.apply_plan_shared(dyn, empty, 0, 0, 0)
+    none = tuple(t[:0] for t in dyn)
+    kernels.apply_plan_shared(none, lanes_t, *widths)
+    assert kernels.launches == before
 
 
 @pytest.mark.cuda

@@ -21,6 +21,9 @@ hints and ``plan_segment_*`` counters are held to the ``np`` mode, its
 final state to every mode.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,10 +33,13 @@ import yjs_tpu as Y
 from test_torch_cuda import (
     INT64_MAX,
     PLANNER_SHAPES,
+    SHARED_EDGES,
+    b4_plan,
     lookup_case,
     planner_corpus,
     scan_case,
     shared_case,
+    shared_edge_case,
     trimmed,
 )
 from yjs_tpu.obs import FLUSH_METRICS_SCHEMA as JAX_SCHEMA
@@ -42,6 +48,7 @@ from yjs_tpu.ops import kernels as jk
 from yjs_tpu.ops import plan_cache as jax_plan_cache
 from yjs_tpu_torch.obs import FLUSH_METRICS_SCHEMA
 from yjs_tpu_torch.ops import BatchEngine as TorchEngine
+from yjs_tpu_torch.ops import _cuda
 from yjs_tpu_torch.ops import kernels as tk
 from yjs_tpu_torch.ops import plan_cache as torch_plan_cache
 from yjs_tpu_torch.ops import segment_planner as tsp
@@ -225,6 +232,141 @@ def test_apply_plan_shared_index_rules_match_jax(seed):
     got = tk.apply_plan_shared(_t(tables), torch.from_numpy(lanes), 12, 5, 7)
     for w, gt in zip(want, got):
         _eq(w, gt)
+
+
+def _shared_both(tables, lanes, widths):
+    want = jk.apply_plan_shared(tuple(jnp.asarray(t) for t in tables),
+                                jnp.asarray(lanes), *widths)
+    before = dict(tk.launches)
+    got = tk.apply_plan_shared(_t(tables), torch.from_numpy(lanes), *widths)
+    assert tk.launches == before  # the plain version never counts
+    for w, g in zip(want, got):
+        _eq(w, g)
+    return got
+
+
+@pytest.mark.parametrize("pad", [True, False])
+@pytest.mark.parametrize("edge", SHARED_EDGES)
+def test_apply_plan_shared_plain_matches_jax_at_edges(edge, pad):
+    """The card tests' edge cases: widths 1, 3, 5 and 9373, each section
+    empty in turn, power-of-two padding one past the table, wrapped and
+    dropped targets, delete marks sharing 4-byte words, B past a grid's
+    y limit, a table past the delete bitmap."""
+    b, n1, s1, live, kind = edge
+    _shared_both(*shared_edge_case(n1 + b, b, n1, s1, live, pad, kind))
+
+
+def test_shared_edge_cases_are_what_they_say():
+    """The seeded K7a edges hold what the comparisons above claim:
+    negative and dropped targets, padding at ``n1``, adjacent marks, and
+    links that are one ascending run once the dropped lanes are gone."""
+    tables, lanes, (k_l, k_h, k_d) = shared_edge_case(
+        9, 5, 1501, 9, (700, 2, 300), True, "ar")
+    rows, dels = lanes[:k_l], lanes[2 * k_l + 2 * k_h :]
+    assert k_l == 1024 and k_d == 512 and (rows == 1501).sum() == 1024 - 702
+    assert (rows < 0).any() and ((rows < -1501) | (rows > 1501)).any()
+    kept = np.where(rows < 0, rows + 1501, rows)
+    kept = kept[(kept >= 0) & (kept < 1501)]
+    assert (np.diff(kept) == 1).all() and len(kept) == 700
+    live = np.sort(np.where(dels < 0, dels + 1501, dels)[dels < 1501])
+    live = live[live >= 0]
+    assert (np.diff(live) == 1).all() and len(np.unique(live // 4)) < len(live)
+    # the widest edge's marks cross a delete tile's first row boundary
+    _t, lanes, (k_l, k_h, k_d) = shared_edge_case(7, 2, 131_011, 9,
+                                                  (6000, 1, 3000), True, "ar")
+    dels = lanes[2 * k_l + 2 * k_h :]
+    dels = np.where(dels < 0, dels + 131_011, dels)
+    edge = _cuda.SHARED_DEL_ROWS
+    assert (dels < edge).any() and ((dels >= edge) & (dels < 131_011)).any()
+
+
+def test_apply_plan_shared_plain_matches_jax_on_the_b4_plan():
+    """The B4 fixture planned by the port's native mirror (pure Python
+    mirror when the native planner is missing), over three docs."""
+    from yjs_tpu_torch.ops.native_mirror import NativeMirror, native_plan_available
+
+    sp = b4_plan(NativeMirror if native_plan_available()
+                 else lambda root: DocMirror(root, device="cpu"))
+    assert sp["n"] == 9372 and sp["k_l"] == 16384
+    b, cap, s1 = 3, sp["cap"], sp["s1"]
+    tables = (np.full((b, cap + 1), -1, np.int32),
+              np.zeros((b, cap + 1), bool), np.full((b, s1), -1, np.int32))
+    got = _shared_both(tables, sp["lanes"], (sp["k_l"], sp["k_h"], sp["k_d"]))
+    assert int(got[1][2].sum()) == len(np.unique(sp["delete_rows"]))
+
+
+SHARED_SOURCE = (Path(tk.__file__).resolve().parent.parent / "csrc"
+                 / "apply_shared.cu")
+
+
+def test_apply_shared_constants_and_entry_match_the_source():
+    """Threads a block, lanes a tile and the tile limit as the source
+    declares them; ``ytpu_apply_plan_shared``'s ctypes argument types
+    follow its C parameters."""
+    text = SHARED_SOURCE.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    assert const("kThreads") == _cuda.SHARED_THREADS
+    assert const("kThreads") * const("kLanes") == _cuda.SHARED_TILE
+    assert "constexpr int kDelRows = (kTile - 1) * 32;" in text
+    assert _cuda.SHARED_DEL_ROWS == (_cuda.SHARED_TILE - 1) * 32
+    assert const("kMaxTiles") == _cuda.SHARED_MAX_TILES
+    assert const("kMinBlocks") == _cuda.SHARED_BLOCKS_SM
+    assert "__launch_bounds__(kThreads, kMinBlocks)" in text
+    m = re.search(r'extern "C" int ytpu_apply_plan_shared\(([^)]*)\)', text)
+    kinds = {"const void*": _cuda._vp, "void*": _cuda._vp, "int": _cuda._int,
+             "long long": _cuda._i64}
+    want = [kinds[p.strip().rsplit(" ", 1)[0]] for p in m.group(1).split(",")]
+    lib, argtypes = _cuda._ENTRIES["ytpu_apply_plan_shared"]
+    assert lib == "apply_shared" and argtypes == want
+
+
+@pytest.mark.parametrize("widths", [
+    ((0, 0, 0, 9), 0), ((1, 0, 0, 9), 1), ((2048, 8, 0, 9), 2),
+    ((2049, 8, 64, 9373), 4), ((16384, 8, 8192, 9373), 10),
+    ((0, 0, 1, 65504), 1), ((0, 0, 1, 65505), 2), ((0, 0, 5, 131_011), 3),
+    ((64, 0, 0, 131_011), 1),
+])
+def test_shared_tiles(widths):
+    """Link and head tiles of 2048 lanes, then one delete tile a 65,504
+    rows of the table when there is any delete lane."""
+    assert _cuda.shared_tiles(*widths[0]) == widths[1]
+
+
+def test_shared_docs_a_block():
+    """Docs a block fill the card's SMs about ``waves`` times (the B4
+    shape: 10 tiles over 16384 docs, 132 SMs of 5 blocks, one wave: 249
+    docs a block, 66 groups, 660 blocks), and at least
+    ``SHARED_MIN_DOCS``; past 65535 tiles the call is refused."""
+    assert _cuda.SHARED_BLOCKS_SM == 5 and tk.SHARED_MIN_DOCS == 8
+    docs = tk.shared_docs_a_block(16384, 9373, 16384, 8, 8192, 132, waves=1)
+    assert docs == 249 and -(-16384 // docs) * 10 == 660
+    assert tk.shared_docs_a_block(16384, 9373, 16384, 8, 8192, 132,
+                                  waves=4) == 63
+    assert tk.shared_docs_a_block(16384, 9373, 16384, 8, 8192, 132,
+                                  waves=16) == 16
+    assert tk.shared_docs_a_block(16384, 9373, 16384, 8, 8192, 132) == \
+        tk.shared_docs_a_block(16384, 9373, 16384, 8, 8192, 132,
+                               waves=tk.SHARED_WAVES) == 8
+    assert tk.shared_docs_a_block(4096, 1437, 1024, 8, 512, 132,
+                                  waves=1) == 19
+    assert tk.shared_docs_a_block(4096, 1437, 1024, 8, 512, 132) == 8
+    assert tk.shared_docs_a_block(1, 65, 64, 8, 64, 132) == 8
+    assert tk.shared_docs_a_block(5, 9, 0, 0, 0, 132) == 8
+    with pytest.raises(ValueError):
+        tk.shared_docs_a_block(2, 9, 65536 * 2048, 0, 0, 132)
+
+
+def test_apply_plan_shared_refuses_mixed_devices():
+    tables, lanes, widths = shared_edge_case(2, 2, 9, 3, (3, 1, 2))
+    dyn = _t(tables)
+    with pytest.raises(ValueError):
+        tk.apply_plan_shared(dyn, torch.from_numpy(lanes).to("meta"), *widths)
+    with pytest.raises(ValueError):
+        tk.apply_plan_shared((dyn[0].to("meta"), *dyn[1:]),
+                             torch.from_numpy(lanes), *widths)
 
 
 # -- the segment planner: device and jax modes against np ---------------------------

@@ -13,6 +13,9 @@ plain versions on the card by ``test_torch_cuda.py``, whose case
 generator this file shares.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,10 +23,11 @@ import torch
 
 import yjs_tpu as Y
 import yjs_tpu_torch as T
-from test_torch_cuda import sync_case
+from test_torch_cuda import DIFF_EDGE_SHAPES, diff_case, sync_case
 from yjs_tpu.ops import BatchEngine as JaxEngine
 from yjs_tpu.ops import kernels as jk
 from yjs_tpu_torch.ops import BatchEngine as TorchEngine
+from yjs_tpu_torch.ops import _cuda
 from yjs_tpu_torch.ops import kernels as tk
 
 
@@ -75,6 +79,78 @@ def test_diff_mask_plain_matches_jax(seed, shape, wide):
     assert got[0].dtype == torch.bool and got[1].dtype == torch.int32
     for w, g in zip(want, got):
         np.testing.assert_array_equal(_np(w), _np(g))
+
+
+@pytest.mark.parametrize("kind", ["seeded", "wide", "empty"])
+@pytest.mark.parametrize("shape", DIFF_EDGE_SHAPES)
+def test_diff_mask_plain_matches_jax_at_edges(shape, kind):
+    """The card tests' edge cases: N = 1, 3, 5 and 1102 (not multiples of
+    four), B past a grid's y limit, state vectors past the kernel's
+    staging, wrapping clocks and the checkpoint's empty state vectors."""
+    b, n, n_slots = shape
+    case = diff_case(kind, 23 + n, b, n, n_slots)
+    want = jk.diff_mask_kernel(*(jnp.asarray(a) for a in case))
+    got = tk.diff_mask_kernel(*(torch.from_numpy(a) for a in case))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(_np(w), _np(g))
+    if kind == "empty":
+        np.testing.assert_array_equal(_np(got[0]), case[0] >= 0)
+
+
+DIFF_SOURCE = Path(tk.__file__).resolve().parent.parent / "csrc" / "diff_mask.cu"
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 1102, 9373, 65537,
+                               (1 << 20) + 7, 2**31 - 1025])
+def test_fast_div_is_exact_below_2_31(n):
+    """K10's multiply-high and shift give ``x // n`` for every dividend
+    the kernel hands it (below 2**31): the edges around each multiple of
+    ``n`` and seeded values."""
+    mul, shift = _cuda.fast_div(n)
+    assert 0 <= mul < 2**32 and 0 <= shift < 32
+    g = np.random.default_rng(n % 1000)
+    xs = {0, 1, 2**31 - 1, 2**31 - 2}
+    for q in (1, 2, 3, 1000, (2**31 - 1) // n):
+        xs |= {q * n - 1, q * n, q * n + 1}
+    xs |= set(g.integers(0, 2**31, 200).tolist())
+    for x in sorted(v for v in xs if 0 <= v < 2**31):
+        got = x if mul == 0 else (x * mul) >> (32 + shift)
+        assert got == x // n, (n, x)
+
+
+@pytest.mark.parametrize("total", [0, 1, 3, 4, 5, 15, 16, 17, 4096 * 1102])
+def test_diff_layout(total):
+    """offset's ``4 total`` bytes first, then needed on a 16-byte
+    boundary; the buffer a whole number of 16-byte words."""
+    at, nbytes = _cuda.diff_layout(total)
+    a = _cuda.DIFF_ALIGN
+    assert at % a == 0 and nbytes % a == 0
+    assert 4 * total <= at < 4 * total + a
+    assert total <= nbytes - at < total + a
+
+
+def test_diff_mask_entry_matches_the_source():
+    """``ytpu_diff_mask``'s ctypes argument types follow its C
+    parameters, and the launch constants the wrapper relies on hold."""
+    text = DIFF_SOURCE.read_text()
+    m = re.search(r'extern "C" int ytpu_diff_mask\(([^)]*)\)', text)
+    assert m
+    kinds = {"const void*": _cuda._vp, "void*": _cuda._vp, "int": _cuda._int,
+             "unsigned": _cuda._u32}
+    want = [kinds[p.strip().rsplit(" ", 1)[0]] for p in m.group(1).split(",")]
+    lib, argtypes = _cuda._ENTRIES["ytpu_diff_mask"]
+    assert lib == "diff_mask" and argtypes == want
+    rows = int(re.search(r"constexpr int kRows = (\d+);", text).group(1))
+    assert _cuda.DIFF_ALIGN % (4 * rows) == 0  # a thread's 16-byte words
+
+
+def test_diff_mask_wrapper_refuses_mixed_devices():
+    case = [torch.from_numpy(a) for a in sync_case(1, 2, 3, 2)]
+    for j in range(4):
+        bad = list(case)
+        bad[j] = bad[j].to("meta")
+        with pytest.raises(ValueError):
+            tk.diff_mask_kernel(*bad)
 
 
 def test_sync_cases_reach_the_edge_rules():

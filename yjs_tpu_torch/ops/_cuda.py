@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import array
 import ctypes
+import functools
 import os
 import re
 import shutil
@@ -41,6 +42,7 @@ CSRC = os.path.join(
 SOURCES = (
     "apply_lanes", "scatter_rows", "list_ranks", "state_vector", "diff_mask",
     "statics", "yata", "conflict_scan", "anchor_lookup", "shard_fold",
+    "apply_shared",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,6 +52,7 @@ NVCC_FLAGS = (
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
 _i64 = ctypes.c_int64
+_u32 = ctypes.c_uint
 # C entry points: name -> (library, argtypes)
 _ENTRIES = {
     "ytpu_apply_lanes_sharded_i32": ("apply_lanes",
@@ -60,13 +63,15 @@ _ENTRIES = {
     "ytpu_list_ranks": ("list_ranks", [_vp] * 5 + [_int] * 4 + [_vp]),
     "ytpu_empty_launch": ("list_ranks", [_vp]),
     "ytpu_state_vector_sharded": ("state_vector", [_vp, _int, _int, _vp]),
-    "ytpu_diff_mask": ("diff_mask", [_vp] * 6 + [_int] * 3 + [_vp]),
+    "ytpu_diff_mask": ("diff_mask", [_vp] * 6 + [_int] * 3 + [_u32] * 2
+                       + [_vp]),
     "ytpu_scatter_statics": ("statics", [_vp] * 7 + [_int] * 3 + [_vp]),
     "ytpu_batch_step": ("yata", [_vp] * 13 + [_int] * 11 + [_vp]),
     "ytpu_batch_step_levels_sharded": ("yata", [_vp] + [_int] * 15 + [_vp]),
     "ytpu_smem_optin": ("yata", [_vp, _vp]),
     "ytpu_yata_occupancy": ("yata", [_int] * 3 + [_vp, _vp]),
-    "ytpu_apply_plan_shared": ("apply_lanes", [_vp] * 4 + [_int] * 6 + [_vp]),
+    "ytpu_apply_plan_shared": ("apply_shared",
+                               [_vp] * 4 + [_i64] + [_int] * 6 + [_vp]),
     "ytpu_conflict_scan": ("conflict_scan", [_vp] * 10 + [_i64, _vp]),
     "ytpu_anchor_lookup_sharded": ("anchor_lookup", [_vp, _int, _i64, _vp]),
     "ytpu_shard_fold": ("shard_fold", [_vp, _int, _i64, _int, _vp, _vp]),
@@ -100,6 +105,16 @@ SCAN_THREADS = 256
 SCAN_LANES = 8
 SCAN_HEAD = 32
 SCAN_ALIGN = 16
+# K7a (csrc/apply_shared.cu): threads a block (kThreads), lanes a link or
+# head tile (kTile), table rows a delete tile (kDelRows), the most tiles a
+# launch (kMaxTiles), blocks an SM holds (kMinBlocks, its launch bound)
+SHARED_THREADS = 256
+SHARED_TILE = 2048
+SHARED_DEL_ROWS = (SHARED_TILE - 1) * 32
+SHARED_MAX_TILES = 65535
+SHARED_BLOCKS_SM = 5
+# K10 (csrc/diff_mask.cu): the alignment of its output buffer's parts
+DIFF_ALIGN = 16
 
 
 def scan_tiles(n: int) -> int:
@@ -116,6 +131,38 @@ def scan_layout(n: int) -> tuple[int, int, int]:
     left_at = -(-8 * n // a) * a
     span = -(-n // a) * a
     return left_at, left_at + span, left_at + 2 * span
+
+
+def shared_tiles(k_l: int, k_h: int, k_d: int, n1: int) -> int:
+    """K7a's tiles: the link and head sections' tiles of
+    :data:`SHARED_TILE` lanes, then (with any delete lane) the delete
+    tiles of :data:`SHARED_DEL_ROWS` rows of the ``n1``-wide table."""
+    dels = -(-n1 // SHARED_DEL_ROWS) if k_d > 0 and n1 > 0 else 0
+    return -(-k_l // SHARED_TILE) - (-k_h // SHARED_TILE) + dels
+
+
+def diff_layout(total: int) -> tuple[int, int]:
+    """K10's output buffer over ``total`` rows: ``(needed_at, nbytes)``;
+    offset (int32) fills its first ``4 * total`` bytes, needed (a byte a
+    row) starts at byte ``needed_at``, a multiple of :data:`DIFF_ALIGN`;
+    ``nbytes`` is a multiple of it too."""
+    a = DIFF_ALIGN
+    needed_at = -(-4 * total // a) * a
+    return needed_at, needed_at + -(-total // a) * a
+
+
+@functools.lru_cache(maxsize=64)
+def fast_div(n: int) -> tuple[int, int]:
+    """``(mul, shift)`` with ``x // n == (x * mul) >> (32 + shift)`` for
+    every ``0 <= x < 2**31`` (``mul`` 0 for ``n`` 1, where the quotient
+    is ``x``): K10's division by the row count, a multiply-high and a
+    shift on the card."""
+    if n < 1:
+        raise ValueError(f"fast_div needs n >= 1, got {n}")
+    if n == 1:
+        return 0, 0
+    p = 31 + (n - 1).bit_length()
+    return ((1 << p) + n - 1) // n, p - 32
 
 
 class KernelError(RuntimeError):
@@ -316,10 +363,11 @@ def state_vector(desc: list, device: torch.device, n_slots: int) -> int:
     return rounds(n, SV_MAX_SHARDS)
 
 
-def diff_mask(row_slot, row_clock, row_end, sv, needed, offset, b, n,
-              n_slots) -> None:
-    _call("ytpu_diff_mask", row_slot.device, _p(row_slot), _p(row_clock),
-          _p(row_end), _p(sv), _p(needed), _p(offset), b, n, n_slots)
+def diff_mask(device, row_slot, row_clock, row_end, sv, needed, offset, b,
+              n, n_slots) -> None:
+    """``row_slot`` .. ``offset``: ``data_ptr``s on ``device``."""
+    _call("ytpu_diff_mask", device, row_slot, row_clock, row_end, sv, needed,
+          offset, b, n, n_slots, *fast_div(n))
 
 
 def scatter_statics(packed, cols, k, b, n1) -> None:
@@ -386,10 +434,27 @@ def batch_step_levels(desc: list, device: torch.device, dims,
     return rounds(n)
 
 
-def apply_plan_shared(lanes, right, deleted, starts, k_l, k_h, k_d) -> None:
-    b, n1 = right.shape
-    _call("ytpu_apply_plan_shared", lanes.device, _p(lanes), _p(right),
-          _p(deleted), _p(starts), b, n1, starts.shape[1], k_l, k_h, k_d)
+# SMs by device index
+_sm_count: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """``device``'s streaming multiprocessors, read once a device."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    n = _sm_count.get(idx)
+    if n is None:
+        n = _sm_count[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return n
+
+
+def apply_plan_shared(device, lanes, right, deleted, starts, b, n1, s1, k_l,
+                      k_h, k_d, docs) -> None:
+    """``lanes`` .. ``starts``: ``data_ptr``s on ``device``; ``docs``: the
+    docs a block (``kernels.shared_docs_a_block``)."""
+    _call("ytpu_apply_plan_shared", device, lanes, right, deleted, starts, b,
+          n1, s1, k_l, k_h, k_d, docs)
 
 
 def conflict_scan(doc_id, cols, out, scratch, n: int) -> None:

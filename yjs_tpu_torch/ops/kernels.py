@@ -619,6 +619,9 @@ def diff_mask_kernel_plain(row_slot, row_clock, row_end, sv):
     return needed, torch.where(needed, offset, torch.zeros_like(offset))
 
 
+_DIFF_NAMES = ("row_slot", "row_clock", "row_end", "sv")
+
+
 @profiled("diff_mask_kernel")
 def diff_mask_kernel(row_slot, row_clock, row_end, sv):
     """Rows (or row suffixes) missing from a remote state vector: the
@@ -627,24 +630,61 @@ def diff_mask_kernel(row_slot, row_clock, row_end, sv):
     row_slot, row_clock, row_end: [B, N] i32; sv: [B, n_slots] i32.
     Returns ``(needed [B, N] bool, offset [B, N] i32)``: offset > 0 means
     the row must be written from that element offset (the
-    partial-first-struct rule, encoding.js:71-84)."""
-    if not _on_cuda(row_slot, row_clock, row_end, sv):
-        return diff_mask_kernel_plain(row_slot, row_clock, row_end, sv)
-    for t, name in ((row_slot, "row_slot"), (row_clock, "row_clock"),
-                    (row_end, "row_end"), (sv, "sv")):
-        _check(t, name, (torch.int32,), 2)
-    if row_clock.shape != row_slot.shape or row_end.shape != row_slot.shape:
-        raise ValueError("row columns disagree in shape")
-    b, n = row_slot.shape
-    if sv.shape[0] != b or sv.shape[1] < 1:
-        raise ValueError(f"sv must be [{b}, n_slots >= 1], got {tuple(sv.shape)}")
-    needed = torch.empty((b, n), dtype=torch.bool, device=row_slot.device)
-    offset = torch.empty((b, n), dtype=torch.int32, device=row_slot.device)
-    if b and n:
-        _cuda.diff_mask(row_slot, row_clock, row_end, sv, needed, offset,
-                        b, n, sv.shape[1])
+    partial-first-struct rule, encoding.js:71-84).  On CUDA the two are
+    views of one buffer (:func:`_cuda.diff_layout`) that one launch
+    fills."""
+    ins = (row_slot, row_clock, row_end, sv)
+    dev = row_slot.device
+    if dev.type != "cuda":
+        _on_cuda(*ins)  # raises on a mix or another device type
+        return diff_mask_kernel_plain(*ins)
+    # one check pass; _diff_error names the fault
+    shape = row_slot.shape
+    if len(shape) != 2 or sv.dim() != 2 or sv.shape[0] != shape[0] \
+            or sv.shape[1] < 1:
+        raise _diff_error(ins)
+    di = row_slot.get_device()
+    for t in ins:
+        if (t.dtype is not torch.int32 or t.get_device() != di
+                or not t.is_contiguous()):
+            raise _diff_error(ins)
+    if row_clock.shape != shape or row_end.shape != shape:
+        raise _diff_error(ins)
+    b, n = shape
+    total = b * n
+    needed_at, nbytes = _cuda.diff_layout(total)
+    out = torch.empty(nbytes >> 2, dtype=torch.int32, device=dev)
+    offset = out.as_strided((b, n), (n, 1))
+    needed = out.view(torch.bool).as_strided((b, n), (n, 1), needed_at)
+    if total:
+        _cuda.diff_mask(dev, row_slot.data_ptr(), row_clock.data_ptr(),
+                        row_end.data_ptr(), sv.data_ptr(), needed.data_ptr(),
+                        out.data_ptr(), b, n, sv.shape[1])
         launches["diff_mask"] += 1
     return needed, offset
+
+
+def _diff_error(ins) -> Exception:
+    """The error for the first of K10's inputs ``ins`` that is not a
+    contiguous 2-D int32 tensor on row_slot's device, or whose shape
+    disagrees: ``TypeError`` for a dtype, else ``ValueError``."""
+    dev = ins[0].device
+    for t, name in zip(ins, _DIFF_NAMES):
+        if t.device != dev:
+            return ValueError(
+                f"kernel inputs must all be on the CPU or on one CUDA "
+                f"device, got {name} on {t.device} and row_slot on {dev}")
+        if t.dtype is not torch.int32:
+            return TypeError(f"{name}: dtype {t.dtype} not in "
+                             f"{(torch.int32,)}")
+        if t.dim() != 2 or not t.is_contiguous():
+            return ValueError(f"{name}: a contiguous 2-D tensor, got "
+                              f"{t.dim()}-D")
+    b = ins[0].shape[0]
+    if ins[1].shape != ins[0].shape or ins[2].shape != ins[0].shape:
+        return ValueError("row columns disagree in shape")
+    return ValueError(f"sv must be [{b}, n_slots >= 1], got "
+                      f"{tuple(ins[3].shape)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1310,6 +1350,31 @@ def apply_plan_shared_plain(dyn, lanes, k_l, k_h, k_d):
     return right_link, deleted, starts
 
 
+# Waves of blocks K7a's grid aims at (shared_docs_a_block), and the fewest
+# docs a block takes: at the B4 replay 32 waves ran fastest on an H100,
+# fewer leave blocks of unequal tiles idle at the end; a block compacts
+# its tile (a few µs) before it writes its docs, which 8 docs amortise
+# (PERF.md)
+SHARED_WAVES = 32
+SHARED_MIN_DOCS = 8
+
+
+def shared_docs_a_block(b: int, n1: int, k_l: int, k_h: int, k_d: int,
+                        sms: int, waves: int | None = None) -> int:
+    """The docs a block of K7a takes: as many as make its grid of
+    ``(doc groups, tiles)`` (:func:`_cuda.shared_tiles`) about ``waves``
+    (default :data:`SHARED_WAVES`) times the blocks the card's ``sms``
+    SMs hold at once, and at least :data:`SHARED_MIN_DOCS`.  Raises
+    ``ValueError`` past the launch's tile limit."""
+    tiles = _cuda.shared_tiles(k_l, k_h, k_d, n1)
+    if tiles > _cuda.SHARED_MAX_TILES:
+        raise ValueError(f"apply_plan_shared: {tiles} lane tiles, the most a "
+                         f"launch takes is {_cuda.SHARED_MAX_TILES}")
+    slots = max(1, (SHARED_WAVES if waves is None else waves) * sms
+                * _cuda.SHARED_BLOCKS_SM)
+    return max(SHARED_MIN_DOCS, -(-b * tiles // slots))
+
+
 @profiled("apply_plan_shared")
 def apply_plan_shared(dyn, lanes, k_l, k_h, k_d):
     """Broadcast bulk apply, in place: ONE doc's resolved delta written
@@ -1320,22 +1385,58 @@ def apply_plan_shared(dyn, lanes, k_l, k_h, k_d):
     Negative targets count from the end; what is still out of bounds
     (padding) is dropped.  Returns ``dyn``."""
     right_link, deleted, starts = dyn
-    if not _on_cuda(right_link, deleted, starts, lanes):
+    dev = right_link.device
+    if dev.type != "cuda":
+        _on_cuda(right_link, deleted, starts, lanes)  # raises on a mix
         return apply_plan_shared_plain(dyn, lanes, k_l, k_h, k_d)
-    _check(right_link, "right_link", (torch.int32,), 2)
-    _check(deleted, "deleted", (torch.bool,), 2)
-    _check(starts, "starts", (torch.int32,), 2)
-    _check(lanes, "lanes", (torch.int32,), 1)
-    b = right_link.shape[0]
-    if deleted.shape != right_link.shape or starts.shape[0] != b:
-        raise ValueError("table shapes disagree")
-    if lanes.shape[0] != 2 * k_l + 2 * k_h + k_d:
-        raise ValueError("lanes length does not match the section widths")
+    # one check pass; _shared_error names the fault
+    shape = right_link.shape
+    if (len(shape) != 2 or deleted.shape != shape or starts.dim() != 2
+            or starts.shape[0] != shape[0] or lanes.dim() != 1
+            or min(k_l, k_h, k_d) < 0
+            or lanes.shape[0] != 2 * k_l + 2 * k_h + k_d
+            or right_link.dtype is not torch.int32
+            or starts.dtype is not torch.int32
+            or deleted.dtype is not torch.bool
+            or lanes.dtype is not torch.int32
+            or not (right_link.is_contiguous() and deleted.is_contiguous()
+                    and starts.is_contiguous() and lanes.is_contiguous())
+            or deleted.device != dev or starts.device != dev
+            or lanes.device != dev):
+        raise _shared_error(dyn, lanes, k_l, k_h, k_d)
+    b, n1 = shape
     if b and k_l + k_h + k_d:
-        _cuda.apply_plan_shared(lanes, right_link, deleted, starts,
-                                k_l, k_h, k_d)
+        docs = shared_docs_a_block(b, n1, k_l, k_h, k_d, _cuda.sm_count(dev))
+        _cuda.apply_plan_shared(dev, lanes.data_ptr(), right_link.data_ptr(),
+                                deleted.data_ptr(), starts.data_ptr(), b, n1,
+                                starts.shape[1], k_l, k_h, k_d, docs)
         launches["apply_plan_shared"] += 1
     return right_link, deleted, starts
+
+
+def _shared_error(dyn, lanes, k_l, k_h, k_d) -> Exception:
+    """The error for K7a's first fault: a tensor on another device than
+    right_link, of another dtype (``TypeError``), not contiguous, or of a
+    shape the others or the section widths disagree with."""
+    named = (("right_link", dyn[0]), ("deleted", dyn[1]), ("starts", dyn[2]),
+             ("lanes", lanes))
+    dev = dyn[0].device
+    for name, t in named:
+        if t.device != dev:
+            return ValueError(
+                f"kernel inputs must all be on the CPU or on one CUDA "
+                f"device, got {name} on {t.device} and right_link on {dev}")
+    for name, t in named:
+        want = torch.bool if name == "deleted" else torch.int32
+        if t.dtype is not want:
+            return TypeError(f"{name}: dtype {t.dtype} not in {(want,)}")
+        if t.dim() != (1 if name == "lanes" else 2) or not t.is_contiguous():
+            return ValueError(f"{name}: a contiguous "
+                              f"{1 if name == 'lanes' else 2}-D tensor, got "
+                              f"{t.dim()}-D")
+    if dyn[1].shape != dyn[0].shape or dyn[2].shape[0] != dyn[0].shape[0]:
+        return ValueError("table shapes disagree")
+    return ValueError("lanes length does not match the section widths")
 
 
 def batch_step_levels_shared_plain(statics, dyn, splits, lv_sched,
