@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flush and provider paths on one CUDA card and check them.
+"""Drive the PyTorch port's paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -67,10 +67,11 @@ script exits non-zero:
    device time into kernels and copies, with the device's idle share;
 6. planner path: the Python mirror's device cold planner
    (``YTPU_NO_NATIVE_PLAN=1``, ``YTPU_PLAN_SEGMENT`` unset, so the
-   whole-chunk ``device`` mode) on ``BatchEngine(1024)`` on the card
-   beside a CPU twin, one doc per distinct fixture trace (a 4096-doc
-   fleet of these traces plans the same chunk, its other 3072 docs
-   replaying the plan cache):
+   whole-chunk ``device`` mode) on ``BatchEngine(512)`` on the card
+   beside a CPU twin, one doc per distinct fixture trace, the first 512
+   of its 1024 (a 4096-doc fleet of the 1024 plans twice this chunk, its
+   other 3072 docs replaying the plan cache; the depth is cut to keep the
+   script's time as the service phases grow):
    - flush 1 loads the traces (one chunk conflict scan, K12, over every
      doc's refs);
    - flush 2 gives every doc a seeded burst of 40 edits by three
@@ -110,7 +111,39 @@ script exits non-zero:
    every flush's ``last_metrics`` (the shards' device counters folded by
    ``shard_fold`` on the card) equals the plain fold of the counters of
    its dispatched inputs;
-9. kernels: each kernel against its plain version on the card at its
+9. fleet path, under ``YTPU_SYNC_DEVICE=1`` as are the next two:
+   ``FleetRouter(8, 1024)`` on the card (every shard's engine on the one
+   card, replication at its default factor 1) beside a CPU twin fleet
+   ``FleetRouter(8, 1024, device="cpu")``, each journaling to its own
+   WAL root, fed the main path's traces over 4096 rooms:
+   - one flush (``apply_lanes`` checked to launch at least once for each
+     shard with pending rooms);
+   - 64 live migrations (``migrate_doc``) and a flush, a drain of one
+     shard, a rebalancer ``tick()``;
+   - a shard killed, failed over (``fail_over``) and its promoted rooms
+     flushed, then revived (its fresh engine checked to be on the card);
+   - ``checkpoint()``, ``close(checkpoint=False)``, then
+     ``FleetRouter.recover`` on the card;
+   after each step both fleets have the same live shards, routing epoch
+   and placements, every shard's trimmed tables equal the twin's slot
+   for slot, and every room's encoded state the twin's; after the revive
+   and the recovery 32 sampled rooms (half of them rooms the failover
+   found without a replica) equal a CPU ``Doc``; with the flush wall and
+   elements a second, migrations a second, the kill-to-converged and
+   recovery walls, and ``torch.cuda.memory_allocated`` before the kill,
+   after the failover and after the revive;
+10. geo path: two regions, each a ``TpuProvider(1024)`` on the card with
+   a ``GeoReplicator``, linked by a pair of in-memory pipes without
+   faults; region A takes every room's fixture trace, region B a
+   concurrent edit of every room; the replicators tick until every
+   room's state vector agrees on live links; both regions' rooms equal
+   each other and a CPU ``Doc``; with the ticks and seconds to
+   convergence and the delta bytes each link shipped;
+11. capacity ramp: ``ramp_capacity`` over providers on the card, stages
+   of 8 to 64 sessions, into a TSDB of its own; every stage must be
+   recorded there and the knee read back from it; with the knee and
+   ``sessions_per_device``;
+12. kernels: each kernel against its plain version on the card at its
    path's largest shapes (exact), with times from CUDA events (``ms``:
    per call, launch gaps included; the YATA steps restore their tables
    before each timed launch and time it alone), device time from
@@ -170,7 +203,9 @@ script exits non-zero:
    chained run through 2**20 lanes, and add ``kernels_a_call`` (checked:
    one kernel), ``ms_obs_off``, ``host_us``, ``graph_ms`` (50 calls
    replayed from a CUDA graph), ``lanes_a_thread`` and ``tiles``;
-10. the last line: ``{"ok": true, "device": {...}}``.
+   every row adds ``launches_fleet``, ``launches_geo`` and
+   ``launches_capacity``, its launches on the three service paths;
+13. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1047,7 +1082,7 @@ def yata_path(traces: list[bytes], edits: dict[int, list[bytes]],
 # -- phase 6: the Python mirror's device cold planner ------------------------------
 
 
-N_PLANNER_DOCS = 1024  # one doc per distinct fixture trace
+N_PLANNER_DOCS = 512  # one doc per distinct fixture trace, half of them
 N_BURST_OPS = 40
 PLANNER_KERNELS = (
     ("conflict_scan", lambda a: a[0].numel(),
@@ -1101,16 +1136,20 @@ def _burst_job(job):
     return interleaved_burst(held, seed)
 
 
-def make_bursts(helds: list[list[bytes]], first_seed: int) -> list:
-    """One burst per doc (seed ``first_seed + doc``), generated in
-    parallel by spawned worker processes, one a core."""
+def worker_pool(n_jobs: int):
+    """Spawned worker processes, one a core (at most 8)."""
     import multiprocessing
 
+    workers = max(1, min(8, os.cpu_count() or 1, n_jobs))
+    return multiprocessing.get_context("spawn").Pool(workers)
+
+
+def make_bursts(helds: list[list[bytes]], first_seed: int, pool):
+    """One burst per doc (seed ``first_seed + doc``), generated in
+    parallel by ``pool``'s worker processes; returns the pending result
+    (``.get()`` gives the bursts)."""
     jobs = [(held, first_seed + i) for i, held in enumerate(helds)]
-    workers = max(1, min(8, os.cpu_count() or 1, len(jobs)))
-    ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(workers) as pool:
-        return pool.map(_burst_job, jobs, chunksize=16)
+    return pool.map_async(_burst_job, jobs, chunksize=16)
 
 
 class PlannerTimer:
@@ -1215,7 +1254,7 @@ def planner_path(traces: list[bytes], main_trimmed: list, smi: str,
                  device: str = "cuda", n_docs: int = N_PLANNER_DOCS) -> dict:
     """The Python mirror's cold planner (``YTPU_NO_NATIVE_PLAN=1``,
     ``YTPU_PLAN_SEGMENT`` unset: the whole-chunk device mode) on
-    ``BatchEngine(1024)`` on the card beside a CPU twin: flush 1 loads
+    ``BatchEngine(512)`` on the card beside a CPU twin: flush 1 loads
     one distinct trace a doc (one chunk conflict scan over every doc),
     flush 2 gives every doc a seeded interleaved burst (a chunk scan and
     one chunk anchor lookup), flush 3 a second burst to doc 0 alone (the
@@ -1233,24 +1272,34 @@ def planner_path(traces: list[bytes], main_trimmed: list, smi: str,
     try:
         os.environ["YTPU_NO_NATIVE_PLAN"] = "1"
         os.environ.pop("YTPU_PLAN_SEGMENT", None)
-        t0 = time.perf_counter()
-        bursts = make_bursts([[traces[i]] for i in range(n_docs)], 500)
-        extra = interleaved_burst([traces[0], *bursts[0]], 499)
-        out["t_bursts"] = time.perf_counter() - t0
-        log_of = {i: [traces[i], *bursts[i]] for i in range(n_docs)}
-        log_of[0] += extra
         plan_cache.reset_cache()
         eng = BatchEngine(n_docs, device=device)
         twin = BatchEngine(n_docs, device="cpu")
         check(all(type(m) is DocMirror for m in eng.mirrors),
               "the planner path does not run on Python mirrors")
-        steps = (
-            ("flush 1", {i: [traces[i]] for i in range(n_docs)}),
-            ("flush 2", {i: bursts[i] for i in range(n_docs)}),
-            ("flush 3", {0: extra}),
-        )
-        with PlannerTimer() as timer:
-            for k, (name, ups) in enumerate(steps, 1):
+        pool = worker_pool(n_docs)
+        pending = None
+        bursts = extra = None
+
+        def updates_of(k):
+            # the bursts are set-up: their worker processes build them
+            # while the twin plans flush 1 (the card's timed flushes run
+            # with no workers beside them)
+            nonlocal bursts, extra
+            if k == 1:
+                return {i: [traces[i]] for i in range(n_docs)}
+            if bursts is None:
+                t0 = time.perf_counter()
+                bursts = pending.get()
+                extra = interleaved_burst([traces[0], *bursts[0]], 499)
+                out["t_bursts"] = time.perf_counter() - t0
+            if k == 2:
+                return {i: bursts[i] for i in range(n_docs)}
+            return {0: extra}
+
+        with pool, PlannerTimer() as timer:
+            for k, name in enumerate(("flush 1", "flush 2", "flush 3"), 1):
+                ups = updates_of(k)
                 for e in (eng, twin):
                     for i, us in ups.items():
                         for u in us:
@@ -1261,6 +1310,9 @@ def planner_path(traces: list[bytes], main_trimmed: list, smi: str,
                 plan_cache.reset_cache()
                 out[f"flush{k}"] = f = planner_flush(eng, timer)
                 plan_cache.reset_cache()
+                if k == 1:
+                    pending = make_bursts(
+                        [[traces[i]] for i in range(n_docs)], 500, pool)
                 t0 = time.perf_counter()
                 twin.flush()
                 out[f"twin{k}"] = time.perf_counter() - t0
@@ -1278,6 +1330,8 @@ def planner_path(traces: list[bytes], main_trimmed: list, smi: str,
                                    "apply lane (native planner)", "planner")
         check(out["flush3"]["plan_threads"] == 1,
               "flush 3's lone cold doc was not planned per doc")
+        log_of = {i: [traces[i], *bursts[i]] for i in range(n_docs)}
+        log_of[0] += extra
         gen = random.Random(4)
         sample = sorted({0, *gen.sample(range(n_docs), min(N_EXPORTED, n_docs) - 1)})
         for i in sample:
@@ -1780,7 +1834,9 @@ def mesh_path(traces: list[bytes], edits: dict[int, list[bytes]],
         os.environ.pop("YTPU_PLAN_SEGMENT", None)
         n = N_MESH_PLANNER_DOCS
         t0 = time.perf_counter()
-        bursts = make_bursts([[traces[i]] for i in range(n)], 700)
+        with worker_pool(n) as pool:
+            bursts = make_bursts([[traces[i]] for i in range(n)], 700,
+                                 pool).get()
         out["t_bursts"] = time.perf_counter() - t0
         eng = BatchEngine(n, mesh=mesh)
         twin = BatchEngine(n, mesh=DocMesh([torch.device("cpu")] * N_SHARDS))
@@ -2081,6 +2137,386 @@ def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
     for row in rows:
         row["path"] = "mesh"
     return rows
+
+
+# -- phase 9: the fleet on the one card --------------------------------------------
+
+
+N_FLEET_SHARDS = 8
+N_FLEET_DOCS = 1024  # slots a shard
+N_FLEET_ROOMS = 4096  # the main path's rooms, fed its traces
+N_FLEET_MOVED = 64
+N_FLEET_SAMPLED = 32  # rooms held to a CPU Doc, half of them lost at failover
+N_GEO_ROOMS = 1024
+N_GEO_TICKS = 400
+
+
+def fleet_twins(fleet, twin, rooms: list[str], what: str) -> None:
+    """``fleet`` equals its CPU twin: the same live shards and routing
+    epoch, every shard's rooms in the same slots with the same trimmed
+    tables, every room's owner, and every room's encoded state."""
+    from yjs_tpu_torch.ops.carry import trim_tables
+
+    t0 = time.perf_counter()
+    check(len(fleet.shards) == len(twin.shards),
+          f"{what}: {len(fleet.shards)} shards, the twin {len(twin.shards)}")
+    check(fleet.live_shards == twin.live_shards,
+          f"{what}: live shards {fleet.live_shards} vs {twin.live_shards}")
+    check(fleet.table.epoch == twin.table.epoch,
+          f"{what}: routing epoch {fleet.table.epoch} vs {twin.table.epoch}")
+    for k, (a, b) in enumerate(zip(fleet.shards, twin.shards)):
+        check(fleet._is_stub(k) == twin._is_stub(k),
+              f"{what}: shard {k} is dead on one side only")
+        if fleet._is_stub(k):
+            continue
+        check(a._guids == b._guids,
+              f"{what}: shard {k} holds other rooms or slots than the twin's")
+        for i, (x, y) in enumerate(zip(trim_tables(a.engine),
+                                       trim_tables(b.engine))):
+            same = (x is None and y is None) or (
+                x is not None and y is not None
+                and all(np.array_equal(u, v) for u, v in zip(x, y))
+            )
+            check(same, f"{what}: shard {k} doc {i}: trimmed tables differ "
+                  "from the CPU twin's")
+    owners = [fleet.owner_of(g) for g in rooms]
+    check(owners == [twin.owner_of(g) for g in rooms],
+          f"{what}: room placements differ from the twin's")
+    bad = sum(fleet.encode_state_as_update(g) != twin.encode_state_as_update(g)
+              for g in rooms)
+    check(bad == 0, f"{what}: {bad} rooms' encoded states differ from the twin's")
+    log(f"[fleet] {what}: {len(fleet.live_shards)} live shards, epoch "
+        f"{fleet.table.epoch}; tables, placements and {len(rooms)} rooms' "
+        f"states equal the CPU twin's (checked in "
+        f"{time.perf_counter() - t0:.1f}s)")
+
+
+def fleet_oracle(fleet, rooms: list[str], held: list[bytes],
+                 sample: list[str], what: str, cache: dict) -> None:
+    """Each sampled room's encoded state equals a CPU ``Doc`` fed its
+    trace (``cache`` keeps each trace's canonical state)."""
+    import yjs_tpu_torch as Y
+
+    index = {g: i for i, g in enumerate(rooms)}
+    for g in sample:
+        u = held[index[g]]
+        if u not in cache:
+            doc = Y.Doc(gc=False)
+            Y.apply_update(doc, u)
+            cache[u] = Y.merge_updates([Y.encode_state_as_update(doc)])
+        check(Y.merge_updates([fleet.encode_state_as_update(g)]) == cache[u],
+              f"{g}: the fleet's state differs from the CPU Doc {what}")
+    log(f"[fleet] {what}: {len(sample)} sampled rooms' states equal the CPU Doc")
+
+
+def fleet_path(traces: list[bytes], smi: str, device: str = "cuda") -> dict:
+    """``FleetRouter(8, 1024)`` on the card beside a CPU twin fleet fed the
+    same bytes: one flush of 4096 rooms, 64 live migrations, a drain and a
+    rebalancer tick, a kill with its failover and a revive, then a
+    checkpoint, a close and a recovery; the two fleets equal after each."""
+    import gc
+
+    from yjs_tpu_torch.fleet import FleetRouter
+    from yjs_tpu_torch.ops import kernels as K
+
+    card_dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    mem = (torch.cuda.memory_allocated if device == "cuda" else lambda: 0)
+    rooms = [f"room-{i:04d}" for i in range(N_FLEET_ROOMS)]
+    held = [traces[i % len(traces)] for i in range(N_FLEET_ROOMS)]
+    fig = {}
+    # exports read the host mirror here: the tables are compared whole
+    saved = os.environ.pop("YTPU_EXPORT_DEVICE", None)
+    try:
+        with tempfile.TemporaryDirectory() as card_dir, \
+                tempfile.TemporaryDirectory() as twin_dir:
+            card = FleetRouter(N_FLEET_SHARDS, N_FLEET_DOCS,
+                               wal_dir=card_dir, device=device)
+            twin = FleetRouter(N_FLEET_SHARDS, N_FLEET_DOCS,
+                               wal_dir=twin_dir, device="cpu")
+            check(all(p.engine.device == card_dev for p in card.shards),
+                  "a shard's engine is not on the card")
+            for f, key in ((card, "ingest"), (twin, "ingest_twin")):
+                _, fig[key] = timed(lambda: [
+                    f.receive_update(g, u) for g, u in zip(rooms, held)])
+            pending = [k for k in card.live_shards if card.shards[k]._dirty]
+            before = K.launches["apply_lanes"]
+            _, fig["flush"] = timed(card.flush)
+            fig["flush_k1"] = K.launches["apply_lanes"] - before
+            _, fig["flush_twin"] = timed(twin.flush)
+            # (a CPU run counts no launches: the plain versions serve)
+            check(device != "cuda" or fig["flush_k1"] >= len(pending),
+                  f"the fleet flush launched apply_lanes {fig['flush_k1']} "
+                  f"times for {len(pending)} shards with pending rooms")
+            fig["pending_shards"] = len(pending)
+            fig["elements"] = sum(sum(card.state_vector(g).values())
+                                  for g in rooms)
+            fig["per_shard"] = [len(card.shards[k].guids())
+                                for k in card.live_shards]
+            fleet_twins(card, twin, rooms, "flush")
+
+            # live migrations: each room to the next shard round the ring
+            gen = random.Random(3)
+            moved = gen.sample(rooms, N_FLEET_MOVED)
+            n = N_FLEET_SHARDS
+
+            def migrate(f):
+                for j, g in enumerate(moved):
+                    src = f.owner_of(g)
+                    f.migrate_doc(g, (src + 1 + j % (n - 1)) % n)
+                f.flush()
+
+            _, fig["migrate"] = timed(lambda: migrate(card))
+            migrate(twin)
+            fleet_twins(card, twin, rooms, f"{N_FLEET_MOVED} migrations")
+            drained = card.owner_of(moved[0])
+            (fig["drained"], fig["drain"]) = timed(
+                lambda: card.drain_shard(drained))
+            twin.drain_shard(drained)
+            card.flush()
+            twin.flush()
+            fleet_twins(card, twin, rooms, f"drain of shard {drained}")
+            fig["decisions"] = card.tick()
+            check(fig["decisions"] == twin.tick(),
+                  "the rebalancer decided otherwise than the twin's")
+            card.flush()
+            twin.flush()
+            fleet_twins(card, twin, rooms, "rebalancer tick")
+
+            # a shard's machine dies; its replicas are promoted
+            victim = card.owner_of(rooms[1])
+            fig["mem_before_kill"] = mem()
+            owned = [g for g in rooms if card.owner_of(g) == victim]
+            card.kill_shard(victim)
+            twin.kill_shard(victim)
+
+            def fail_over(f):
+                res = f.fail_over(victim)
+                f.flush()
+                return res
+
+            res, fig["failover"] = timed(lambda: fail_over(card))
+            tres, fig["failover_twin"] = timed(lambda: fail_over(twin))
+            check(res == tres, "failover reports differ")
+            # a room moved since its replica was seeded (as the drain
+            # moved many onto this shard) may have none: failover declares
+            # it lost (it comes back empty where it is next placed), and
+            # the revive merges the dead shard's copy into it (the JAX
+            # fleet does the same)
+            check(len(res["promoted"]) + len(res["lost"]) == len(owned),
+                  f"failover promoted {len(res['promoted'])} and lost "
+                  f"{len(res['lost'])} of {len(owned)} rooms")
+            fig["promoted"] = len(res["promoted"])
+            fig["lost"] = len(res["lost"])
+            fig["mem_after_failover"] = mem()
+            fleet_twins(card, twin, rooms, f"failover of shard {victim}")
+            rev = card.revive_shard(victim)
+            check(rev == twin.revive_shard(victim), "revive reports differ")
+            check(card.shards[victim].engine.device == card_dev,
+                  f"the revived shard's engine is on "
+                  f"{card.shards[victim].engine.device}")
+            fig["mem_after_revive"] = mem()
+            fig["fenced"] = len(rev["fenced"])
+            fig["readopted"] = len(rev["readopted"])
+            card.flush()
+            twin.flush()
+            fleet_twins(card, twin, rooms, f"revive of shard {victim}")
+            lost_rooms = sorted(set(owned) - set(res["promoted"]))
+            sample = sorted(set(lost_rooms[:N_FLEET_SAMPLED // 2])
+                            | set(gen.sample(rooms, N_FLEET_SAMPLED // 2)))
+            oracle = {}
+            fleet_oracle(card, rooms, held, sample, "after the revive", oracle)
+
+            # checkpoint, close, recover on the card
+            for f in (card, twin):
+                f.checkpoint()
+                f.close(checkpoint=False)
+            del card, twin
+            gc.collect()
+            rec, fig["recover"] = timed(
+                lambda: FleetRouter.recover(card_dir, device=device))
+            trec, fig["recover_twin"] = timed(
+                lambda: FleetRouter.recover(twin_dir, device="cpu"))
+            check(all(rec._is_stub(k) or p.engine.device == card_dev
+                      for k, p in enumerate(rec.shards)),
+                  "a recovered shard's engine is not on the card")
+            fleet_twins(rec, trec, rooms, "recovery")
+            fleet_oracle(rec, rooms, held, sample, "after the recovery", oracle)
+            fig["resolution"] = rec.last_recovery["resolution"]
+            rec.close(checkpoint=False)
+            trec.close(checkpoint=False)
+            del rec, trec
+            gc.collect()
+    finally:
+        restore_env("YTPU_EXPORT_DEVICE", saved)
+    rate = fig["elements"] / fig["flush"]
+    log(f"[fleet] {N_FLEET_SHARDS} shards x {N_FLEET_DOCS} slots, "
+        f"{N_FLEET_ROOMS} rooms ({min(fig['per_shard'])}-"
+        f"{max(fig['per_shard'])} a shard): flush {fig['flush']:.3f}s, "
+        f"{fig['elements']} elements = {rate:.0f} elements/s, apply_lanes "
+        f"launched {fig['flush_k1']} times for {fig['pending_shards']} "
+        f"shards ({smi})")
+    log(f"[fleet] {N_FLEET_MOVED} migrations and their flush "
+        f"{fig['migrate']:.3f}s = {N_FLEET_MOVED / fig['migrate']:.1f} "
+        f"migrations/s; drain of {fig['drained']} rooms {fig['drain']:.3f}s "
+        f"= {fig['drained'] / fig['drain']:.1f} migrations/s; rebalancer "
+        f"decisions {len(fig['decisions'])} ({smi})")
+    log(f"[fleet] kill to converged (fail_over + flush of {fig['promoted']} "
+        f"promoted rooms, {fig['lost']} without a replica) "
+        f"{fig['failover']:.3f}s; the revive fenced {fig['fenced']} rooms and "
+        f"re-adopted {fig['readopted']}; recover wall {fig['recover']:.3f}s, "
+        f"resolution {json.dumps(fig['resolution'], sort_keys=True)} ({smi})")
+    log(f"[fleet] host s: ingest {fig['ingest']:.3f} (twin "
+        f"{fig['ingest_twin']:.3f}); the twin's flush {fig['flush_twin']:.3f}, "
+        f"failover {fig['failover_twin']:.3f}, recovery "
+        f"{fig['recover_twin']:.3f} ({smi})")
+    log(f"[fleet] torch.cuda.memory_allocated: before the kill "
+        f"{fig['mem_before_kill']}, after the failover "
+        f"{fig['mem_after_failover']}, after the revive "
+        f"{fig['mem_after_revive']} bytes")
+    return fig
+
+
+# -- phase 10: geo replication between two providers on the card ------------------
+
+
+def _canonical_job(updates):
+    """The canonical encoded state of a CPU ``Doc`` fed ``updates``."""
+    import yjs_tpu_torch as Y
+
+    doc = Y.Doc(gc=False)
+    for u in updates:
+        Y.apply_update(doc, u)
+    return Y.merge_updates([Y.encode_state_as_update(doc)])
+
+
+def geo_path(traces: list[bytes], smi: str, device: str = "cuda") -> dict:
+    """Two regions, each a ``TpuProvider(1024)`` on the card with a
+    ``GeoReplicator``, linked by a pair of in-memory pipes without faults:
+    region A takes every room's fixture trace, region B a concurrent edit
+    of every room by its own client; the replicators tick until every
+    room's state vector agrees and both links are live.  Both regions'
+    rooms must equal each other and a CPU ``Doc`` fed both updates."""
+    import yjs_tpu_torch as Y
+    from yjs_tpu_torch.geo import GeoConfig, GeoReplicator
+    from yjs_tpu_torch.provider import TpuProvider
+    from yjs_tpu_torch.sync.session import SessionConfig
+    from yjs_tpu_torch.sync.transport import PipeNetwork
+
+    card_dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    cfg = SessionConfig(
+        seed=1, heartbeat=0, liveness=0, antientropy=8, hello_timeout=0,
+        retry_base=4, retry_cap=16, retry_max=6, retry_jitter=0.25,
+    )
+    a = TpuProvider(N_GEO_ROOMS, device=device)
+    b = TpuProvider(N_GEO_ROOMS, device=device)
+    check(a.engine.device == card_dev and b.engine.device == card_dev,
+          "a region's engine is not on the card")
+    net = PipeNetwork()
+    ta, tb = net.pair("geo:A", "geo:B")
+    ra = GeoReplicator(a, GeoConfig(region="A", seed=1))
+    rb = GeoReplicator(b, GeoConfig(region="B", seed=2))
+    ra.add_peer("B", lambda: ta, session_config=cfg)
+    rb.add_peer("A", lambda: tb, session_config=cfg)
+
+    def tick():
+        a.flush()
+        b.flush()
+        ra.tick()
+        rb.tick()
+        net.pump()
+
+    for _ in range(12):  # the handshake
+        tick()
+    rooms = [f"geo-{i:04d}" for i in range(N_GEO_ROOMS)]
+    edits_b = []
+    for i, g in enumerate(rooms):
+        d = Y.Doc(gc=False)
+        d.client_id = 900000 + i
+        d.get_text("text").insert(0, f"[B{i}]")
+        edits_b.append(Y.encode_state_as_update(d))
+        a.receive_update(g, traces[i % len(traces)])
+        b.receive_update(g, edits_b[i])
+
+    def live():
+        return all(link.session.state == "live"
+                   for rep in (ra, rb) for link in rep.links.values())
+
+    def converge():
+        for n in range(1, N_GEO_TICKS + 1):
+            tick()
+            if live() and all(a.state_vector(g) == b.state_vector(g)
+                              for g in rooms):
+                return n
+        raise AssertionError(f"geo regions not converged in {N_GEO_TICKS} ticks")
+
+    ticks, wall = timed(converge)
+    with worker_pool(len(rooms)) as pool:
+        wants = pool.map(_canonical_job, [
+            (traces[i % len(traces)], edits_b[i]) for i in range(len(rooms))
+        ], chunksize=16)
+    for g, want in zip(rooms, wants):
+        state = a.encode_state_as_update(g)
+        check(state == b.encode_state_as_update(g),
+              f"{g}: the regions' encoded states differ")
+        check(Y.merge_updates([state]) == want,
+              f"{g}: the regions' state differs from the CPU Doc")
+    shipped = {r: rep.links[p].shipped_bytes
+               for r, rep, p in (("A", ra, "B"), ("B", rb, "A"))}
+    resyncs = [link.session.n_full_resyncs
+               for rep in (ra, rb) for link in rep.links.values()]
+    check(resyncs == [1, 1], f"geo links resynced {resyncs} times")
+    log(f"[geo] 2 regions x {N_GEO_ROOMS} rooms edited in both: converged in "
+        f"{ticks} ticks, {wall:.3f}s; delta bytes shipped A->B "
+        f"{shipped['A']}, B->A {shipped['B']}; every room equals the CPU Doc "
+        f"in both regions ({smi})")
+    return {"ticks": ticks, "wall": wall, "shipped": shipped}
+
+
+# -- phase 11: the capacity ramp on the card ----------------------------------------
+
+
+def capacity_path(smi: str, device: str = "cuda") -> dict:
+    """``ramp_capacity`` over providers on the card on a short stage
+    list, into a TSDB of its own: every stage must be recorded there, and
+    the knee read back from it."""
+    from yjs_tpu_torch.obs.capacity import (
+        CapacityConfig, ramp_capacity, read_knee, sessions_per_device,
+    )
+    from yjs_tpu_torch.obs.tsdb import Tsdb, TsdbConfig
+    from yjs_tpu_torch.provider import TpuProvider
+
+    card_dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    store = Tsdb(TsdbConfig(interval_s=1.0, retention_raw_s=86400.0,
+                            directory=None))
+    cfg = CapacityConfig(start_sessions=8, max_sessions=64, growth=2.0,
+                         ticks_per_stage=24, flush_every=2, seed=0)
+
+    def make_server(n):
+        prov = TpuProvider(n + 4, device=device)
+        check(prov.engine.device == card_dev,
+              "a ramp stage's provider is not on the card")
+        return prov
+
+    result, wall = timed(
+        lambda: ramp_capacity(make_server, config=cfg, store=store, now=1000.0))
+    lo, hi = result["window"]
+    stages = [s["sessions"] for s in result["stages"]]
+    recorded = [int(v) for _, v in store.query(
+        "ytpu_capacity_sessions", start=lo - 1.0, end=hi + 1.0, tier="raw")]
+    oks = store.query("ytpu_capacity_ok", start=lo - 1.0, end=hi + 1.0,
+                      tier="raw")
+    check(recorded == stages and len(oks) == len(stages),
+          f"the TSDB holds stages {recorded}, the ramp ran {stages}")
+    knee = read_knee(store, lo - 1.0, hi + 1.0)
+    check(knee == result["sessions_at_slo"],
+          f"knee {knee} read back, the ramp reported {result['sessions_at_slo']}")
+    spd = sessions_per_device(result)
+    log(f"[capacity] stages {json.dumps(result['stages'])}; knee {knee} "
+        f"sessions, sessions_per_device {spd['sessions_per_device']} "
+        f"({spd['n_devices']} devices), ceiling hit {spd['ceiling_hit']}; "
+        f"ramp wall {wall:.3f}s ({smi})")
+    return {"knee": knee, "sessions_per_device": spd, "wall": wall,
+            "stages": result["stages"]}
 
 
 def cuda_ms(fn, n: int = TIMED_LAUNCHES) -> float:
@@ -3202,13 +3638,16 @@ def main() -> int:
     torch.cuda.synchronize()
     pl_launches = dict(K.launches)
     log(f"[planner] wall {time.perf_counter() - t0:.1f}s; launches {pl_launches}")
-    log(f"[planner] {pfig['n_docs']} docs, one per distinct fixture trace (a "
-        f"{N_DOCS}-doc fleet of these traces plans the same chunk; its other "
-        f"{N_DOCS - pfig['n_docs']} docs would replay the plan cache and "
-        "launch nothing); bursts of "
-        f"{pfig['burst_updates']} updates generated in {pfig['t_bursts']:.1f}s "
-        f"(set-up); CPU twin flushes, planned cold on the plain kernels, "
-        f"{pfig['twin1']:.3f} / {pfig['twin2']:.3f} / {pfig['twin3']:.3f}s")
+    log(f"[planner] {pfig['n_docs']} docs, one per distinct fixture trace "
+        f"(of {len(traces)}; a {N_DOCS}-doc fleet of all of them plans a "
+        f"chunk {len(traces) // pfig['n_docs']}x this one, its other "
+        f"{N_DOCS - len(traces)} docs replaying the plan cache and launching "
+        "nothing); bursts of "
+        f"{pfig['burst_updates']} updates (set-up) generated by worker "
+        "processes beside the twin's flush 1, waited for "
+        f"{pfig['t_bursts']:.1f}s after it; CPU twin flushes, planned cold "
+        f"on the plain kernels, {pfig['twin1']:.3f} (beside the burst "
+        f"workers) / {pfig['twin2']:.3f} / {pfig['twin3']:.3f}s")
     check(pl_launches["conflict_scan_chunk"] >= 2,
           "the chunk conflict scan launched fewer than twice")
     check(pl_launches["anchor_lookup"] >= 1, "the anchor lookup never launched")
@@ -3246,9 +3685,37 @@ def main() -> int:
         check(m_launches[name] > 0, f"{name} never launched on the mesh path")
     for name in ("trimmed", "log_of", "state_vectors"):
         del figures[name]
+
+    # the fleet, geo replication and the capacity ramp on the card, with
+    # the device sync branch on (the fleet's checkpoints take diff_mask)
+    service = {}
+    saved_env = os.environ.get("YTPU_SYNC_DEVICE")
+    os.environ["YTPU_SYNC_DEVICE"] = "1"
+    try:
+        for name, run in (
+            ("fleet", lambda: fleet_path(traces, dev["smi"])),
+            ("geo", lambda: geo_path(traces, dev["smi"])),
+            ("capacity", lambda: capacity_path(dev["smi"])),
+        ):
+            K.reset_launches()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            service[name] = dict(K.launches)
+            log(f"[{name}] wall {time.perf_counter() - t0:.1f}s; launches "
+                f"{service[name]}")
+            check(service[name]["apply_lanes"] > 0,
+                  f"apply_lanes never launched on the {name} path")
+    finally:
+        restore_env("YTPU_SYNC_DEVICE", saved_env)
+    check(service["fleet"]["diff_mask"] > 0,
+          "the fleet's checkpoint never launched diff_mask")
     rows = kernel_phase(cap.seen, launches, pcap.seen, plaunches, ycap.seen,
                         ylaunches, plcap.seen, pl_launches, bfig, b_launches,
                         b4fig, b4_launches, mfig, m_launches)
+    for row in rows:  # each kernel's launches on the service paths
+        for name, counts in service.items():
+            row[f"launches_{name}"] = counts.get(row["name"], 0)
     log(json.dumps({"kernels": rows}))
     log(dev["smi"])
     print(json.dumps({"ok": True, "device": {

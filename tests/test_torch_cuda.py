@@ -814,6 +814,62 @@ def test_provider_on_card_matches_cpu_twin(cuda_device, monkeypatch, tmp_path):
         assert rec.text(f"r{i}") == twin.text(f"r{i}")
 
 
+@pytest.mark.cuda
+def test_fleet_on_card_matches_cpu_twin(cuda_device, hang_guard, tmp_path):
+    """A fleet's shards all live on the card and share its scratch: after
+    a flush, a live migration, a kill with its failover and a revive,
+    every shard's trimmed tables and every room's state equal a CPU twin
+    fleet's fed the same bytes; ``apply_lanes`` launches on the flushes."""
+    from yjs_tpu_torch.fleet import FleetRouter
+    from yjs_tpu_torch.ops.carry import trim_tables
+
+    card = FleetRouter(2, 64, wal_dir=str(tmp_path / "card"), device="cuda")
+    twin = FleetRouter(2, 64, wal_dir=str(tmp_path / "cpu"), device="cpu")
+    assert all(p.engine.device.type == "cuda" for p in card.shards)
+    rooms = [f"r{i}" for i in range(24)]
+    for i, g in enumerate(rooms):
+        for u in edit_trace(i):
+            card.receive_update(g, u)
+            twin.receive_update(g, u)
+
+    def equal(what):
+        card.flush()
+        twin.flush()
+        assert card.table.epoch == twin.table.epoch, what
+        for k, (a, b) in enumerate(zip(card.shards, twin.shards)):
+            assert card._is_stub(k) == twin._is_stub(k), what
+            if card._is_stub(k):
+                continue
+            assert a._guids == b._guids, what
+            for x, y in zip(trim_tables(a.engine), trim_tables(b.engine)):
+                assert (x is None) == (y is None), what
+                if x is not None:
+                    for u, v in zip(x, y):
+                        np.testing.assert_array_equal(u, v, err_msg=what)
+        for g in rooms:
+            assert card.owner_of(g) == twin.owner_of(g), what
+            assert (card.encode_state_as_update(g)
+                    == twin.encode_state_as_update(g)), (what, g)
+
+    before = kernels.launches["apply_lanes"]
+    equal("flush")
+    assert kernels.launches["apply_lanes"] >= before + 2
+    for f in (card, twin):
+        f.migrate_doc("r0", 1 - f.owner_of("r0"))
+    equal("migration")
+    victim = card.owner_of("r1")
+    for f in (card, twin):
+        f.tick()  # replica copies seeded
+        f.kill_shard(victim)
+    assert card.fail_over(victim) == twin.fail_over(victim)
+    equal("failover")
+    assert card.revive_shard(victim) == twin.revive_shard(victim)
+    assert card.shards[victim].engine.device.type == "cuda"
+    equal("revive")
+    for g in rooms[:4]:
+        assert card.text(g) == twin.text(g) != ""
+
+
 # -- K3-K6: the on-device YATA lanes ---------------------------------------------
 
 # client ids below and at or above 2**31: YATA case 1 orders them unsigned

@@ -37,6 +37,8 @@ import yjs_tpu_torch.ops.carry, yjs_tpu_torch.ops._cuda
 import yjs_tpu_torch.obs.prof, yjs_tpu_torch.obs.capacity
 import yjs_tpu_torch.persistence, yjs_tpu_torch.sync, yjs_tpu_torch.tiering
 import yjs_tpu_torch.parallel, yjs_tpu_torch.parallel.mesh
+import yjs_tpu_torch.fleet, yjs_tpu_torch.geo, yjs_tpu_torch.loadgen
+from yjs_tpu_torch.fleet import FleetRouter
 from yjs_tpu_torch.ops import BatchEngine
 from yjs_tpu_torch.parallel import doc_mesh
 from yjs_tpu_torch.provider import TpuProvider
@@ -47,6 +49,9 @@ meshed.flush()
 prov = TpuProvider(2, device="cpu")
 prov.receive_update("r", yjs_tpu_torch.encode_state_as_update(yjs_tpu_torch.Doc()))
 prov.flush()
+fleet = FleetRouter(2, 2, device="cpu")
+fleet.receive_update("r", yjs_tpu_torch.encode_state_as_update(yjs_tpu_torch.Doc()))
+fleet.flush()
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {banned!r})
 assert not leaked, leaked
 print("ok")

@@ -14,7 +14,6 @@ import textwrap
 from pathlib import Path
 
 import numpy as np
-import pytest
 import torch
 
 import yjs_tpu as Y
@@ -149,12 +148,29 @@ def test_engine_flush_attributes_the_apply_kernel():
 
 
 def test_capacity_counts_cuda_devices():
+    from yjs_tpu_torch.obs.tsdb import Tsdb, TsdbConfig
+    from yjs_tpu_torch.provider import TpuProvider
+
     out = capacity.sessions_per_device({"sessions_at_slo": 96})
     n = max(1, torch.cuda.device_count())
     assert out["n_devices"] == n
     assert out["sessions_per_device"] == round(96 / n, 2)
-    with pytest.raises(NotImplementedError, match="loadgen"):
-        capacity.ramp_capacity(lambda n: None)
+    # the ramp drives the load generator over port providers on the CPU
+    # and reads its knee back from the TSDB it recorded the stages in
+    store = Tsdb(TsdbConfig(interval_s=1.0, directory=None))
+    cfg = capacity.CapacityConfig(
+        start_sessions=2, max_sessions=4, ticks_per_stage=4, flush_every=2,
+        slo_target_ms=60_000.0,
+    )
+    result = capacity.ramp_capacity(
+        lambda n: TpuProvider(n + 4, device="cpu"), config=cfg, store=store,
+        now=100.0,
+    )
+    assert [s["sessions"] for s in result["stages"]] == [2, 4]
+    assert result["sessions_at_slo"] == 4
+    assert capacity.read_knee(store, *result["window"]) == 4
+    folded = capacity.sessions_per_device(result)
+    assert folded["sessions_per_device"] == round(4 / n, 2)
 
 
 BUILD_SCRIPT = textwrap.dedent("""

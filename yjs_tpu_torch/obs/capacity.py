@@ -16,10 +16,10 @@ embedded TSDB (``obs/tsdb.py``), and the published figure — the
 out of that history by :func:`read_knee`, not from a side channel: the
 capacity number is, by construction, a TSDB query over the ramp.
 
-In the PyTorch port :func:`ramp_capacity` raises ``NotImplementedError``
-until loadgen and the provider are ported (ROADMAP queue 1, items 6 and
-11); :func:`read_knee` and :func:`sessions_per_device` (knee / visible
-CUDA devices) work as in the JAX package.
+:func:`sessions_per_device` folds the knee into the published figure:
+knee sessions over the visible CUDA devices.  ``make_server`` builds
+the servers the ramp drives (port providers or fleets); they run on the
+card unless it builds them with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -86,10 +86,54 @@ def ramp_capacity(
     TSDB history (module docstring).  ``store`` defaults to the
     process-global TSDB; ``now`` anchors the recorded stage timestamps
     (injectable for deterministic tests)."""
-    raise NotImplementedError(
-        "the capacity ramp drives the provider through loadgen, which the "
-        "PyTorch port does not carry yet (ROADMAP queue 1, item 11)"
-    )
+    from ..loadgen import INTERACTIVE_MIX, LoadGen, LoadGenConfig
+    from .tsdb import tsdb
+
+    config = config if config is not None else CapacityConfig()
+    store = store if store is not None else tsdb()
+    t = float(now) if now is not None else store.clock()
+    t0 = t
+    stages = []
+    ceiling_hit = True
+    for n in config.stages():
+        server = make_server(n)
+        try:
+            lg = LoadGen(server, LoadGenConfig(
+                seed=config.seed,
+                n_clients=n,
+                mix=INTERACTIVE_MIX,
+                flush_every=config.flush_every,
+                slo_target_ms=config.slo_target_ms,
+            ))
+            lg.run(config.ticks_per_stage)
+            verdict = lg._worst_slo()
+            p99 = lg.interactive_p99()
+        finally:
+            close = getattr(server, "close", None)
+            if close is not None:
+                close()
+        ok = verdict != "page" and p99 <= config.p99_limit_ticks
+        store.record(_SESSIONS_SERIES, float(n), now=t)
+        store.record(_OK_SERIES, 1.0 if ok else 0.0, now=t)
+        store.record(_P99_SERIES, float(p99), now=t)
+        stages.append({
+            "sessions": n,
+            "slo_verdict": verdict,
+            "interactive_p99_ticks": p99,
+            "ok": ok,
+        })
+        t += max(1.0, store.config.interval_s)
+        if not ok:
+            ceiling_hit = False
+            break
+    knee = read_knee(store, t0 - 1.0, t + 1.0)
+    return {
+        "stages": stages,
+        "sessions_at_slo": knee,
+        "ceiling_hit": ceiling_hit,
+        "p99_limit_ticks": config.p99_limit_ticks,
+        "window": [t0, t],
+    }
 
 
 def read_knee(store, start: float, end: float) -> int:
