@@ -111,7 +111,7 @@ script exits non-zero:
    every flush's ``last_metrics`` (the shards' device counters folded by
    ``shard_fold`` on the card) equals the plain fold of the counters of
    its dispatched inputs;
-9. fleet path, under ``YTPU_SYNC_DEVICE=1`` as are the next two:
+9. fleet path, under ``YTPU_SYNC_DEVICE=1`` as are the next three:
    ``FleetRouter(8, 1024)`` on the card (every shard's engine on the one
    card, replication at its default factor 1) beside a CPU twin fleet
    ``FleetRouter(8, 1024, device="cpu")``, each journaling to its own
@@ -143,7 +143,40 @@ script exits non-zero:
    of 8 to 64 sessions, into a TSDB of its own; every stage must be
    recorded there and the knee read back from it; with the knee and
    ``sessions_per_device``;
-12. kernels: each kernel against its plain version on the card at its
+12. cluster path: the port's process cluster, ``Supervisor(4, ...,
+   docs_per_shard=1024, backend="auto", device="cuda")``: four shard
+   processes (``python -m yjs_tpu_torch.cluster.shard --device cuda``),
+   each its own CUDA context on the card, beside a CPU twin cluster
+   (``device="cpu"``, its children running the plain kernels) fed every
+   update and sync frame the card's facade accepted, and a gateway over
+   the card's:
+   - spawn: every child's ready line names the card; the seconds from
+     spawn to ready, a child;
+   - 1024 rooms (room r gets fixture trace r) through the facade, four
+     calls in flight a cluster, then every live shard flushed through a
+     call that raises;
+     32 sampled texts equal a CPU ``Doc``;
+   - 16 clients on 8 rooms, a y-websocket and a session client (the
+     launcher's ``WsClient`` and ``SessionClient``) in each, 64 seeded
+     edits each: edit-to-visible p50 and p99, every client converged to
+     its room's server text;
+   - kill -9 of an edited room's owner while a stream of 40 edits to
+     another of its rooms and a flush are in flight: the child restarts
+     through ``recover`` on the card, no acked edit is lost;
+   - the same shard killed again, past ``restart_max``: failover, the
+     promoted successors recover-restarted on the card;
+   - the federated snapshot, the children's launch counts (the
+     ``launches`` RPC, read before each kill, before every ``shutdown``
+     call and after a checkpoint) and each child's memory on the card
+     (``nvidia-smi``); a graceful close checkpoints every shard;
+   - supervision reported the planned restart and failover and nothing
+     else, and every child either cluster started exited 0, the two
+     killed ones -9;
+   after each step every room's full diff equals the twin's byte for
+   byte (in canonical form once a shard replayed its WAL, which merges
+   structs that live flushes kept apart) and its state vector the twin's
+   as a map;
+13. kernels: each kernel against its plain version on the card at its
    path's largest shapes (exact), with times from CUDA events (``ms``:
    per call, launch gaps included; the YATA steps restore their tables
    before each timed launch and time it alone), device time from
@@ -203,9 +236,10 @@ script exits non-zero:
    chained run through 2**20 lanes, and add ``kernels_a_call`` (checked:
    one kernel), ``ms_obs_off``, ``host_us``, ``graph_ms`` (50 calls
    replayed from a CUDA graph), ``lanes_a_thread`` and ``tiles``;
-   every row adds ``launches_fleet``, ``launches_geo`` and
-   ``launches_capacity``, its launches on the three service paths;
-13. the last line: ``{"ok": true, "device": {...}}``.
+   every row adds ``launches_fleet``, ``launches_geo``,
+   ``launches_capacity`` and ``launches_cluster``, its launches on the
+   four service paths (the cluster's in its shard children);
+14. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2519,6 +2553,662 @@ def capacity_path(smi: str, device: str = "cuda") -> dict:
             "stages": result["stages"]}
 
 
+# -- phase 12: the process cluster on the card --------------------------------------
+
+
+N_CLUSTER_SHARDS = 4
+N_CLUSTER_DOCS = 1024  # slots a shard: the fleet phase's shard width
+# rooms, each a distinct fixture trace: a restarted shard's recover
+# materializes its journal-only replica copies beside its own rooms, so
+# owned + replica rooms must fit its slots (at 2048 rooms one shard would
+# hold 1073 of 1024)
+N_CLUSTER_ROOMS = 1024
+N_CLUSTER_CALLS = 4  # facade calls in flight, a cluster
+N_CLUSTER_SAMPLED = 32
+N_GATEWAY_ROOMS = 8  # a y-websocket and a session client in each
+N_GATEWAY_EDITS = 64  # a client
+N_STREAM_EDITS = 40  # the edit stream in flight through the kill
+N_STREAM_BEFORE_KILL = 10
+CLUSTER_WAIT_S = 120.0
+
+
+def _load_launcher():
+    """``scripts/torch_ytpu_cluster.py`` as a module: its session and
+    y-websocket clients drive the gateway."""
+    import importlib.util
+
+    path = ROOT / "scripts" / "torch_ytpu_cluster.py"
+    spec = importlib.util.spec_from_file_location("torch_ytpu_cluster", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _smoke_supervisor():
+    """The port's ``Supervisor`` with four instruments: the seconds each
+    child took from spawn to its ready line; every child process it
+    started, to hold each one's exit code; the children's kernel launch
+    counts, read over RPC on demand and by every ``shutdown`` call (the
+    graceful close's and a failover's close of each successor) just
+    before it; and a log of every update and sync frame its facade
+    accepted, in order, for the CPU twin."""
+    import threading
+
+    from yjs_tpu_torch.cluster import RpcError, Supervisor
+
+    class SmokeSupervisor(Supervisor):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.spawns: list[tuple[int, float, str]] = []
+            self.procs: list = []  # (shard, Popen), every child started
+            self.launches: dict[str, int] = {}
+            self.launch_read_errors: list[str] = []
+            self.ingress: list[tuple[str, str, bytes]] = []
+            self.logging = False
+            self._ingress_lock = threading.Lock()
+
+        def _spawn(self, sp) -> None:
+            t0 = time.perf_counter()
+            super()._spawn(sp)
+            self.spawns.append(
+                (sp.shard_id, time.perf_counter() - t0, sp.device))
+            self.procs.append((sp.shard_id, sp.proc))
+            client, call = sp.client, sp.client.call
+
+            def counted_call(method, payload=None, timeout=None):
+                if method == "shutdown":
+                    self._take_launches(sp.shard_id, call)
+                return call(method, payload, timeout=timeout)
+
+            client.call = counted_call
+
+        def _take_launches(self, k: int, call) -> None:
+            try:
+                got = call("launches", {"reset": True})["launches"]
+            except RpcError as e:
+                self.launch_read_errors.append(f"shard {k}: {e}")
+                return
+            with self._ingress_lock:
+                for name, n in got.items():
+                    self.launches[name] = self.launches.get(name, 0) + int(n)
+
+        def read_launches(self) -> None:
+            """Add every live child's launch counts to ``launches`` and
+            zero them in the child."""
+            for row in self.recovery_report()["shards"]:
+                if row["state"] == "live":
+                    self._take_launches(row["shard"],
+                                        self._client_of(row["shard"]).call)
+
+        def _record(self, kind: str, guid: str, data: bytes) -> None:
+            if self.logging:
+                with self._ingress_lock:
+                    self.ingress.append((kind, guid, bytes(data)))
+
+        def receive_update(self, guid, update, v2=False, internal=False):
+            ok = super().receive_update(guid, update, v2=v2, internal=internal)
+            if ok:
+                self._record("update", guid, update)
+            return ok
+
+        def handle_sync_message(self, guid, message):
+            reply = super().handle_sync_message(guid, message)
+            self._record("sync", guid, message)
+            return reply
+
+        def drain_ingress(self) -> list:
+            with self._ingress_lock:
+                out, self.ingress = self.ingress, []
+            return out
+
+    return SmokeSupervisor
+
+
+def _retry(fn, deadline_s: float = CLUSTER_WAIT_S):
+    """One facade call, retried while its room's shard is down."""
+    from yjs_tpu_torch.cluster import RpcError
+
+    deadline = time.monotonic() + deadline_s
+    while True:
+        try:
+            return fn()
+        except RpcError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.05)
+
+
+def _flush_shards(sup) -> float:
+    """Flush every live shard through its RPC client, which raises on any
+    error the child reports (the facade's ``flush()`` drops them)."""
+    t0 = time.perf_counter()
+    for row in sup.recovery_report()["shards"]:
+        if row["state"] == "live":
+            sup._client_of(row["shard"]).call("flush", {})
+    return time.perf_counter() - t0
+
+
+def _cluster_states(sup, rooms: list[str]) -> dict:
+    """Each room's state vector (as a map) and full diff (its bytes)."""
+    import yjs_tpu_torch as Y
+
+    def one(g):
+        return (Y.decode_state_vector(_retry(
+                    lambda: sup.state_vector_bytes(g))),
+                _retry(lambda: sup.diff_update(g, None)))
+
+    with ThreadPoolExecutor(N_CLUSTER_CALLS) as ex:
+        return dict(zip(rooms, ex.map(one, rooms)))
+
+
+def cluster_twins(card, twin, rooms: list[str], what: str,
+                  canonical: bool = False) -> dict:
+    """Every room's full diff from the card's cluster equals the CPU
+    twin's byte for byte, and its state vector the twin's as a map (the
+    twin first takes whatever the card's facade accepted since the last
+    call); returns the card's.  A state vector's encoded order is the
+    order its clients first reached the engine's flushes, which differs
+    between a live run and its replay, so it is compared decoded, as the
+    reference's cluster tests compare a room's peers.  With ``canonical``
+    (after a restart) a diff whose bytes differ is compared in canonical
+    form (``merge_updates``): a shard that replayed its WAL merged in one
+    flush the structs that live flushes kept apart."""
+    import yjs_tpu_torch as Y
+
+    t0 = time.perf_counter()
+    for kind, g, data in card.drain_ingress():
+        if kind == "update":
+            check(_retry(lambda: twin.receive_update(g, data)),
+                  f"{what}: the twin refused an update of {g}")
+        else:
+            _retry(lambda: twin.handle_sync_message(g, data))
+    t1 = time.perf_counter()
+    _flush_shards(card)
+    _flush_shards(twin)
+    t2 = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:
+        fa = ex.submit(_cluster_states, card, rooms)
+        fb = ex.submit(_cluster_states, twin, rooms)
+        a, b = fa.result(), fb.result()
+    bad = [g for g in rooms if a[g][0] != b[g][0]]
+    check(not bad, f"{what}: {len(bad)} rooms' state vectors differ from "
+          f"the twin's, first {bad[:3]}")
+    t3 = time.perf_counter()
+    bad = [g for g in rooms if a[g][1] != b[g][1]]
+    n_raw = len(rooms) - len(bad)
+    if canonical:
+        bad = [g for g in bad if Y.merge_updates([a[g][1]])
+               != Y.merge_updates([b[g][1]])]
+    check(not bad, f"{what}: {len(bad)} rooms' full diffs differ from the "
+          f"twin's, first {bad[:3]}")
+    log(f"[cluster] {what}: {len(rooms)} rooms' state vectors and full "
+        f"diffs equal the CPU twin's ({n_raw} diffs byte for byte, the "
+        f"rest in canonical form); the twin's catch-up {t1 - t0:.1f}s, "
+        f"flushes {t2 - t1:.1f}s, reads {t3 - t2:.1f}s, compare "
+        f"{time.perf_counter() - t3:.1f}s")
+    return a
+
+
+def planned_events(sup, victim: int) -> None:
+    """The supervisor reported exactly the smoke's two planned deaths of
+    ``victim``: its restart, then its failover."""
+    report = sup.recovery_report()
+    got = [(e["outcome"], e["shard"]) for e in report["events"]]
+    check(got == [("recovered", victim), ("failover", victim)]
+          and report["outcomes"] == {"recovered": 1, "failover": 1},
+          f"supervision reported {got}, outcomes {report['outcomes']}")
+
+
+def _card_memory() -> dict:
+    """The card's memory in use (MiB) and its compute processes' rows,
+    from ``nvidia-smi``; a container may list every process under one
+    pid, so a child's share is read from the total's growth."""
+    def smi(*args) -> str:
+        return subprocess.run(["nvidia-smi", *args,
+                               "--format=csv,noheader,nounits"],
+                              capture_output=True, text=True,
+                              timeout=60).stdout
+    used = smi("--query-gpu=memory.used").split()
+    return {"used_mib": int(used[0]) if used else None,
+            "apps": [line.strip() for line in
+                     smi("--query-compute-apps=pid,used_memory").splitlines()
+                     if line.strip()]}
+
+
+def _pct(xs: list[float], q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))]
+
+
+def gateway_edits(launcher, gw, card, rooms: list[str], seed: int) -> dict:
+    """Two clients a room, one of each dialect, each making seeded edits
+    (a unique token at the start or the end of its text, one at a time)
+    and timing each until the update that carries it is applied at its
+    room's other client."""
+    import re
+    import threading
+
+    import yjs_tpu_torch as Y
+
+    token_re = re.compile(rb"\[[ws]\d+e\d+\]")
+    seen: list[dict] = []
+    cond = threading.Condition()
+
+    def watch(doc, box):
+        def on_update(update, origin, _doc):
+            now = time.perf_counter()
+            found = token_re.findall(bytes(update))
+            if found:
+                with cond:
+                    for tok in found:
+                        box.setdefault(tok.decode("ascii"), now)
+                    cond.notify_all()
+        doc.on("update", on_update)
+
+    pairs = []
+    for j, g in enumerate(rooms):
+        ws_doc, ss_doc = Y.Doc(gc=False), Y.Doc(gc=False)
+        ws_doc.client_id, ss_doc.client_id = 500000 + 2 * j, 500001 + 2 * j
+        boxes = ({}, {})
+        watch(ws_doc, boxes[0])
+        watch(ss_doc, boxes[1])
+        seen.extend(boxes)
+        pairs.append((launcher.WsClient(gw.port, g, doc=ws_doc),
+                      launcher.SessionClient(gw.port, g, f"smoke-{j}",
+                                             doc=ss_doc)))
+
+    def wait_text(client, want, deadline_s=CLUSTER_WAIT_S) -> bool:
+        deadline = time.monotonic() + deadline_s
+        while time.monotonic() < deadline:
+            if client.text() == want:
+                return True
+            time.sleep(0.05)
+        return False
+
+    for (ws, ss), g in zip(pairs, rooms):
+        want = _retry(lambda: card.text(g))
+        for c in (ws, ss):
+            check(wait_text(c, want),
+                  f"{g}: a {type(c).__name__} never received the room")
+    lat: list[float] = []
+    fails: list[str] = []
+
+    def drive(me, peer_box, tag, gen):
+        for e in range(N_GATEWAY_EDITS):
+            token = f"[{tag}e{e}]"
+            with me.lock:
+                text = me.doc.get_text("text")
+                t0 = time.perf_counter()
+                text.insert(0 if gen.random() < 0.5 else len(text), token)
+            deadline = time.monotonic() + CLUSTER_WAIT_S
+            with cond:
+                while token not in peer_box and time.monotonic() < deadline:
+                    cond.wait(0.5)
+                at = peer_box.get(token)
+                if at is None:
+                    fails.append(token)
+                    return
+                lat.append(at - t0)
+
+    gen = random.Random(seed)
+    threads = []
+    for j, (ws, ss) in enumerate(pairs):
+        ws_box, ss_box = seen[2 * j], seen[2 * j + 1]
+        for me, box, tag in ((ws, ss_box, f"w{j}"), (ss, ws_box, f"s{j}")):
+            threads.append(threading.Thread(
+                target=drive, args=(me, box, tag, random.Random(gen.random()))))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(not fails, f"edits never reached the peer: {fails[:4]}")
+    for (ws, ss), g in zip(pairs, rooms):
+        _retry(lambda: card.flush(g))
+        want = _retry(lambda: card.text(g))
+        for c in (ws, ss):
+            check(wait_text(c, want),
+                  f"{g}: a client never converged to the server text")
+    return {"pairs": pairs, "lat": lat, "wall": wall,
+            "p50_ms": _pct(lat, 0.5) * 1e3, "p99_ms": _pct(lat, 0.99) * 1e3}
+
+
+def cluster_path(traces: list[bytes], smi: str, device: str = "cuda",
+                 n_docs: int = N_CLUSTER_DOCS,
+                 n_rooms: int = N_CLUSTER_ROOMS) -> dict:
+    """Four shard processes on the card (each its own CUDA context) under
+    the port's ``Supervisor`` beside a CPU twin cluster fed the same
+    bytes, a gateway over the card's: spawn, rooms, gateway clients, a
+    kill -9 with its restart, a failover, federation, and a graceful
+    close; the two clusters' rooms equal after each step."""
+    # the children run ``python -m yjs_tpu_torch.cluster.shard``: they
+    # find the package from any working directory
+    saved_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT), saved_path) if p)
+    try:
+        return _cluster_path(traces, smi, device, n_docs, n_rooms)
+    finally:
+        restore_env("PYTHONPATH", saved_path)
+
+
+def _cluster_path(traces, smi, device, n_docs, n_rooms) -> dict:
+    import signal
+    import tempfile
+    import threading
+
+    import yjs_tpu_torch as Y
+    from yjs_tpu_torch.cluster import (
+        ClusterConfig, Gateway, GatewayConfig, RpcError,
+    )
+
+    launcher = _load_launcher()
+    Sup = _smoke_supervisor()
+    cfg = ClusterConfig(heartbeat_s=0.15, restart_max=1,
+                        restart_backoff_s=0.05, spawn_timeout_s=600.0)
+    rooms = [f"room-{i:04d}" for i in range(n_rooms)]
+    held = [traces[i % len(traces)] for i in range(n_rooms)]
+    fig: dict = {}
+    card_type = torch.device(device).type
+    with tempfile.TemporaryDirectory() as card_root, \
+            tempfile.TemporaryDirectory() as twin_root:
+        card = Sup(N_CLUSTER_SHARDS, card_root, docs_per_shard=n_docs,
+                   config=cfg, backend="auto", device=device)
+        twin = Sup(N_CLUSTER_SHARDS, twin_root, docs_per_shard=n_docs,
+                   config=cfg, backend="auto", device="cpu")
+        gw = None
+        pairs = []
+        try:
+            # 1. spawn: the two clusters' children come up side by side
+            on_card = card_type == "cuda"
+            mem0 = _card_memory() if on_card else {}
+            t0 = time.perf_counter()
+            tw = threading.Thread(target=twin.start)
+            tw.start()
+            card.start()
+            tw.join()
+            fig["spawn_wall"] = time.perf_counter() - t0
+            rows = card.recovery_report()["shards"]
+            check(all(torch.device(r["device"]).type == card_type
+                      for r in rows),
+                  f"a child's ready line names another device: "
+                  f"{[r['device'] for r in rows]}")
+            check({r["device"] for r in twin.recovery_report()["shards"]}
+                  == {"cpu"}, "a twin child is not on the CPU")
+            log(f"[cluster] spawn to ready ({smi}): " + ", ".join(
+                f"shard {k} {s:.2f}s on {d}" for k, s, d in card.spawns)
+                + f"; twin {', '.join(f'{s:.2f}s' for _, s, _ in twin.spawns)}")
+            card.read_launches()  # every count zero before the path
+            card.launches.clear()
+
+            # 2. rooms through the facade, then every shard flushed
+            def ingest(sup):
+                def one(i):
+                    g, u = rooms[i], held[i]
+                    check(_retry(lambda: sup.receive_update(g, u)),
+                          f"{g}: the facade refused its trace")
+
+                t = time.perf_counter()
+                with ThreadPoolExecutor(N_CLUSTER_CALLS) as ex:
+                    list(ex.map(one, range(n_rooms)))
+                return time.perf_counter() - t
+
+            with ThreadPoolExecutor(1) as ex:
+                ft = ex.submit(ingest, twin)
+                fig["ingest"] = ingest(card)
+                fig["ingest_twin"] = ft.result()
+            fig["flush"] = _flush_shards(card)
+            # each child made its CUDA context at its first flush
+            mem1 = _card_memory() if on_card else {}
+            per_shard = [len(_retry(lambda: card._call(r["shard"], "guids", {}))
+                             ["guids"]) for r in rows]
+            states = cluster_twins(card, twin, rooms, f"{n_rooms} rooms")
+            fig["elements"] = sum(sum(sv.values())
+                                  for sv, _ in states.values())
+            gen = random.Random(5)
+            sample = gen.sample(range(n_rooms), N_CLUSTER_SAMPLED)
+            for i in sample:
+                doc = Y.Doc(gc=False)
+                Y.apply_update(doc, held[i])
+                check(_retry(lambda: card.text(rooms[i]))
+                      == doc.get_text("text").to_string(),
+                      f"{rooms[i]}: the cluster's text differs from the CPU Doc")
+            rate = fig["elements"] / (fig["ingest"] + fig["flush"])
+            log(f"[cluster] {N_CLUSTER_SHARDS} shards x {n_docs} slots, "
+                f"{n_rooms} rooms ({min(per_shard)}-{max(per_shard)} a "
+                f"shard, replica copies besides): ingest through the facade, "
+                f"{N_CLUSTER_CALLS} calls in flight, "
+                f"{fig['ingest']:.3f}s (the shards' tickers flush meanwhile), "
+                f"then the flush of every shard {fig['flush']:.3f}s; "
+                f"{fig['elements']} elements = {rate:.0f} elements/s; "
+                f"{N_CLUSTER_SAMPLED} sampled texts equal the CPU Doc; twin "
+                f"ingest {fig['ingest_twin']:.3f}s ({smi})")
+
+            # 3. the gateway: two dialects, two clients a room
+            gw = Gateway(card, config=GatewayConfig(port=0)).start()
+            card.logging = True
+            gw_rooms = rooms[:N_GATEWAY_ROOMS]
+            g3 = gateway_edits(launcher, gw, card, gw_rooms, seed=6)
+            pairs = g3.pop("pairs")
+            lat = g3.pop("lat")
+            fig["gateway"] = g3
+            cluster_twins(card, twin, rooms, "gateway edits")
+            log(f"[cluster] gateway: {2 * len(gw_rooms)} clients on "
+                f"{len(gw_rooms)} rooms (y-websocket and session dialects), "
+                f"{len(lat)} edits: edit-to-visible p50 {g3['p50_ms']:.1f} "
+                f"ms, p99 {g3['p99_ms']:.1f} ms, wall {g3['wall']:.2f}s; "
+                f"every client converged to its room's server text ({smi})")
+
+            # 4. kill -9 an edited room's owner with an edit stream and a
+            # flush in flight; the child restarts through recover
+            victim = card.owner_of(gw_rooms[0])
+            stream_room = next(g for g in rooms[N_GATEWAY_ROOMS:]
+                               if card.owner_of(g) == victim)
+            sdoc = Y.Doc(gc=False)
+            sdoc.client_id = 777777
+            acked = []
+            killed = threading.Event()
+
+            def stream():
+                for e in range(N_STREAM_EDITS):
+                    sv = Y.encode_state_vector(sdoc)
+                    sdoc.get_text("text").insert(0, f"[k{e}]")
+                    u = Y.encode_state_as_update(sdoc, sv)
+                    check(_retry(lambda: card.receive_update(stream_room, u)),
+                          "a stream edit was refused")
+                    acked.append(time.perf_counter())
+
+            def flusher():
+                while not killed.is_set():
+                    try:
+                        card._client_of(victim).call("flush", {})
+                    except RpcError:
+                        return  # the kill cut it
+
+            ts = threading.Thread(target=stream)
+            ts.start()
+            while len(acked) < N_STREAM_BEFORE_KILL:
+                time.sleep(0.001)
+            tf = threading.Thread(target=flusher)
+            tf.start()
+            time.sleep(0.02)
+            card.read_launches()
+            old_pid = card._shards[victim].pid
+            killed_procs = [card._shards[victim].proc]
+            t_kill = time.perf_counter()
+            os.kill(old_pid, signal.SIGKILL)
+            killed.set()
+            deadline = time.monotonic() + CLUSTER_WAIT_S
+            while card.recovery_report()["outcomes"].get("recovered", 0) < 1:
+                check(time.monotonic() < deadline, "no restart was reported")
+                time.sleep(0.01)
+            t_back = time.perf_counter()
+            ts.join()
+            tf.join()
+            t_stream = acked[-1]
+            report = card.recovery_report()
+            (ev,) = report["events"]
+            check(ev["outcome"] == "recovered" and ev["shard"] == victim,
+                  f"the restart reported {ev}")
+            check(ev["recovery"].get("outcome") == "recovered",
+                  "the restarted child did not replay its WAL")
+            row = report["shards"][victim]
+            check(row["pid"] != old_pid and torch.device(row["device"]).type
+                  == card_type, f"the restarted child runs on {row['device']}")
+            sv = Y.decode_state_vector(
+                _retry(lambda: card.state_vector_bytes(stream_room)))
+            check(sv.get(sdoc.client_id, 0)
+                  == Y.decode_state_vector(Y.encode_state_vector(sdoc))[
+                      sdoc.client_id],
+                  "an acked stream edit was lost over the kill")
+            fig["restart"] = {
+                "unavailable_s": ev["unavailable_s"],
+                "kill_to_recovered_s": t_back - t_kill,
+                "kill_to_stream_acked_s": t_stream - t_kill,
+                "records_applied": ev["recovery"].get("records_applied"),
+            }
+            cluster_twins(card, twin, rooms, f"kill -9 of shard {victim}",
+                          canonical=True)
+            for ws, ss in pairs:
+                want = _retry(lambda: card.text(ws.room))
+                check(ws.text() == want and ss.text() == want,
+                      f"{ws.room}: a client lost the server text")
+            log(f"[cluster] kill -9 of shard {victim} (owner of "
+                f"{gw_rooms[0]}) with {N_STREAM_EDITS} stream edits to "
+                f"{stream_room} and a flush in flight: outcome recovered, "
+                f"{ev['recovery'].get('records_applied')} WAL records "
+                f"replayed on the card, unavailable_s {ev['unavailable_s']}, "
+                f"kill to recovered {t_back - t_kill:.3f}s, kill to the "
+                f"last stream edit acked {t_stream - t_kill:.3f}s; no acked "
+                f"edit lost ({smi})")
+
+            # 5. the same shard again, past restart_max: failover
+            card.read_launches()
+            owned = [g for g in rooms if card.owner_of(g) == victim]
+            killed_procs.append(card._shards[victim].proc)
+            t_kill = time.perf_counter()
+            os.kill(card._shards[victim].pid, signal.SIGKILL)
+            deadline = time.monotonic() + CLUSTER_WAIT_S
+            while card.recovery_report()["outcomes"].get("failover", 0) < 1:
+                check(time.monotonic() < deadline, "no failover was reported")
+                time.sleep(0.01)
+            t_back = time.perf_counter()
+            report = card.recovery_report()
+            ev = report["events"][-1]
+            planned_events(card, victim)
+            check(ev["promoted"] >= 1, f"the failover reported {ev}")
+            check(report["shards"][victim]["state"] == "lost",
+                  "the failed shard is not marked lost")
+            moved = {card.owner_of(g) for g in owned}
+            check(victim not in moved, "a room stayed on the lost shard")
+            check(all(torch.device(r["device"]).type == card_type
+                      for r in report["shards"] if r["state"] == "live"),
+                  "a promoted successor runs off the card")
+            # the twin keeps every room where it was: the comparison is by
+            # room, wherever the card now serves it
+            cluster_twins(card, twin, rooms, f"failover of shard {victim}",
+                          canonical=True)
+            sv = Y.decode_state_vector(
+                _retry(lambda: card.state_vector_bytes(stream_room)))
+            check(sv.get(sdoc.client_id, 0)
+                  == Y.decode_state_vector(Y.encode_state_vector(sdoc))[
+                      sdoc.client_id],
+                  "an acked stream edit was lost over the failover")
+            fig["failover"] = {
+                "kill_to_failover_s": t_back - t_kill,
+                "unavailable_s": ev["unavailable_s"],
+                "promoted": ev["promoted"],
+                "successors": sorted(moved),
+                "rooms": len(owned),
+            }
+            log(f"[cluster] failover of shard {victim} past restart_max: "
+                f"{ev['promoted']} of its {len(owned)} rooms promoted onto "
+                f"shards {sorted(moved)} (recover-restarted on the card), "
+                f"unavailable_s {ev['unavailable_s']}, kill to failover "
+                f"{t_back - t_kill:.3f}s; every room served again and equal "
+                f"to the twin's, every acked edit held ({smi})")
+
+            # 6. federation, launches, memory on the card
+            snap = card.metrics_snapshot()
+            card.read_launches()
+            pids = [r["pid"] for r in card.recovery_report()["shards"]
+                    if r["state"] == "live"]
+            mem2 = _card_memory() if on_card else {}
+            fig["card_memory"] = {"before_spawn": mem0, "rooms_in": mem1,
+                                  "after_failover": mem2}
+            # a checkpoint of every live shard through its RPC client,
+            # side by side (counted: a closing checkpoint is not, it runs
+            # after the child's RPC server has closed)
+            live = [r["shard"] for r in card.recovery_report()["shards"]
+                    if r["state"] == "live"]
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(live)) as ex:
+                done = list(ex.map(lambda k: card._client_of(k).call(
+                    "checkpoint", {})["checkpoint"], live))
+            check(all(done), f"a shard wrote no checkpoint: {done}")
+            fig["checkpoint"] = time.perf_counter() - t0
+            card.read_launches()
+            fed = snap["federation"]
+            check(fed.get("stale") == [f"shard-{victim:03d}"],
+                  f"federation: stale sources {fed.get('stale')}")
+            log(f"[cluster] federation: {fed['sources']} sources, "
+                f"stale {fed.get('stale')}")
+            per_child = ([(m["used_mib"] - mem0["used_mib"]) / n
+                          for m, n in ((mem1, N_CLUSTER_SHARDS),
+                                       (mem2, len(pids)))]
+                         if on_card else None)
+            log(f"[cluster] checkpoint of the {len(pids)} live shards "
+                f"{fig['checkpoint']:.3f}s; the children's kernel launches "
+                f"so far (read before each kill, before each successor's "
+                f"close and after the checkpoint) "
+                f"{json.dumps(card.launches, sort_keys=True)}")
+            log(f"[cluster] memory on the card (nvidia-smi, MiB): "
+                f"{json.dumps(fig['card_memory'])}; a child's share of the "
+                f"growth over the parent's: {per_child} MiB, with its rooms "
+                f"in and after the failover ({smi})")
+        finally:
+            for ws, ss in pairs:
+                ws.close()
+                ss.close()
+            if gw is not None:
+                gw.close()
+            # 7. a graceful close checkpoints every shard
+            t0 = time.perf_counter()
+            procs = [sp.proc for sp in card._shards.values()
+                     if sp.state == "live"]
+            tw = threading.Thread(target=twin.close)
+            tw.start()
+            card.close()
+            fig["close"] = time.perf_counter() - t0
+            tw.join()
+        # supervision saw the two planned deaths and nothing else: a child
+        # that failed on its own (a kernel error exits 1, and the monitor
+        # would restart it) shows as another event or another exit code
+        planned_events(card, victim)
+        check(not twin.recovery_report()["events"],
+              f"the twin's supervisor saw {twin.recovery_report()['events']}")
+        check(not card.launch_read_errors,
+              f"launch counts unread: {card.launch_read_errors}")
+        fig["launches"] = dict(card.launches)
+        exits = [(k, p.poll(), -signal.SIGKILL if p in killed_procs else 0)
+                 for sup in (card, twin) for k, p in sup.procs]
+        bad = [(k, rc, want) for k, rc, want in exits if rc != want]
+        check(not bad, f"children exited with codes other than planned "
+              f"(shard, code, planned): {bad}")
+        snaps = [d for d in sorted(Path(card_root).iterdir())
+                 if d.name != f"shard-{victim:03d}"
+                 and not any(p.name.startswith("checkpoint-")
+                             for p in d.iterdir())]
+        check(not snaps, f"no closing checkpoint in {snaps}")
+        log(f"[cluster] graceful close {fig['close']:.3f}s: {len(procs)} "
+            f"children exited 0, each WAL holds its closing checkpoint; of "
+            f"the {len(exits)} children the two clusters started, the two "
+            f"killed exited -9, the rest 0, and supervision reported only "
+            f"the planned restart and failover")
+    return fig
+
+
 def cuda_ms(fn, n: int = TIMED_LAUNCHES) -> float:
     """Mean ms of ``fn()`` over ``n`` calls, from CUDA events, after a
     warm-up call."""
@@ -3706,6 +4396,16 @@ def main() -> int:
                 f"{service[name]}")
             check(service[name]["apply_lanes"] > 0,
                   f"apply_lanes never launched on the {name} path")
+        # the process cluster: its kernels launch in the shard children,
+        # each of which counts its own (read over RPC before each kill
+        # and at the end)
+        t0 = time.perf_counter()
+        cfig = cluster_path(traces, dev["smi"])
+        service["cluster"] = cfig["launches"]
+        log(f"[cluster] wall {time.perf_counter() - t0:.1f}s; the "
+            f"children's launches {service['cluster']}")
+        check(service["cluster"].get("apply_lanes", 0) > 0,
+              "apply_lanes never launched in a cluster shard")
     finally:
         restore_env("YTPU_SYNC_DEVICE", saved_env)
     check(service["fleet"]["diff_mask"] > 0,

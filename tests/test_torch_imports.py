@@ -38,6 +38,8 @@ import yjs_tpu_torch.obs.prof, yjs_tpu_torch.obs.capacity
 import yjs_tpu_torch.persistence, yjs_tpu_torch.sync, yjs_tpu_torch.tiering
 import yjs_tpu_torch.parallel, yjs_tpu_torch.parallel.mesh
 import yjs_tpu_torch.fleet, yjs_tpu_torch.geo, yjs_tpu_torch.loadgen
+import yjs_tpu_torch.cluster, yjs_tpu_torch.cluster.shard
+import yjs_tpu_torch.analysis
 from yjs_tpu_torch.fleet import FleetRouter
 from yjs_tpu_torch.ops import BatchEngine
 from yjs_tpu_torch.parallel import doc_mesh
@@ -78,7 +80,11 @@ def _imported_roots(tree: ast.AST):
             yield (node.module or "").split(".")[0], node.lineno
 
 
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (
+    sorted(PORT.rglob("*.py"))
+    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "scripts").glob("torch_ytpu_*.py"))
+)
 
 
 @pytest.mark.parametrize(
@@ -88,3 +94,47 @@ def test_no_import_statement_names_jax_or_the_jax_package(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [(m, ln) for m, ln in _imported_roots(tree) if m in BANNED]
     assert not bad, f"{path}: {bad}"
+
+
+# a shard child of the port's cluster, started as the supervisor starts
+# it, under the same finder: it must reach its ready line on the CPU
+SHARD_CHILD = """
+import importlib.abc, runpy, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {banned!r}:
+            raise ImportError("blocked import: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.argv = ["shard", "--id", "0", "--wal-dir", {wal!r}, "--docs", "4",
+            "--device", "cpu", "--backend", "auto", "--admin-port", "0"]
+runpy.run_module("yjs_tpu_torch.cluster.shard", run_name="__main__")
+"""
+
+
+def test_shard_child_runs_with_jax_blocked(tmp_path):
+    import json
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    code = SHARD_CHILD.format(banned=BANNED, wal=str(tmp_path / "wal"))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT),
+    )
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("YTPU_SHARD_READY "), (
+            line + proc.stderr.read()[-2000:] if proc.poll() is not None
+            else line
+        )
+        ready = json.loads(line[len("YTPU_SHARD_READY "):])
+        assert ready["device"] == "cpu"
+        assert ready["recovery"] == {"outcome": "fresh"}
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    # SIGTERM is the graceful stop: a closing checkpoint, exit 0
+    assert proc.returncode == 0, proc.stderr.read()[-2000:]

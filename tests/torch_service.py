@@ -1,19 +1,23 @@
 """Shared pieces of the port's service-stack suites (fleet, replication,
-geo, overload): the port's providers and fleets placed on the CPU, and
-the seeded-room helpers the JAX package's fleet suites each define.
+geo, overload, cluster): the port's providers, fleets and cluster
+shards placed on the CPU, and the seeded-room helpers the JAX package's
+fleet suites each define.
 
-``TpuProvider`` and ``FleetRouter`` here are the port's classes with
-``device="cpu"`` as their default, so every provider a test builds,
-directly or through a fleet (constructor, ``add_shard``,
-``revive_shard``, ``recover``), runs the kernels' plain PyTorch
-versions.  ``BACKENDS`` are the provider backends the suites run under:
-``"cpu"`` (every doc on the CPU core) and ``"auto"`` (the engine's
-apply lane, where the plain ``apply_lanes`` carries every flush).
+``TpuProvider``, ``FleetRouter``, ``Supervisor`` and ``ShardServer``
+here are the port's classes with ``device="cpu"`` as their default, so
+every provider a test builds, directly, through a fleet (constructor,
+``add_shard``, ``revive_shard``, ``recover``) or in a shard process,
+runs the kernels' plain PyTorch versions.  ``BACKENDS`` are the
+provider backends the suites run under: ``"cpu"`` (every doc on the CPU
+core) and ``"auto"`` (the engine's apply lane, where the plain
+``apply_lanes`` carries every flush).
 """
 
 import random
 
 import yjs_tpu_torch as Y
+from yjs_tpu_torch.cluster import Supervisor as _Supervisor
+from yjs_tpu_torch.cluster.shard import ShardServer as _ShardServer
 from yjs_tpu_torch.fleet import FailoverConfig
 from yjs_tpu_torch.fleet import FleetRouter as _FleetRouter
 from yjs_tpu_torch.persistence import WalConfig
@@ -126,3 +130,57 @@ def crash(fleet):
     for k, p in enumerate(fleet.shards):
         if not fleet._is_stub(k):
             p.wal.abandon()
+
+
+class Supervisor(_Supervisor):
+    """The port's process cluster, every shard child on the CPU unless
+    told otherwise."""
+
+    def __init__(self, *args, device="cpu", **kwargs):
+        super().__init__(*args, device=device, **kwargs)
+
+
+class ShardServer(_ShardServer):
+    """The port's in-process shard server, on the CPU unless told
+    otherwise."""
+
+    def __init__(self, *args, device="cpu", **kwargs):
+        super().__init__(*args, device=device, **kwargs)
+
+
+def load_script(name):
+    """A file of ``scripts/`` imported as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def one_thread_a_child(monkeypatch):
+    """Every shard child imports torch: one intra-op thread each keeps a
+    few children beside other test workers from oversubscribing cores."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+
+
+def wait_outcome(sup, outcome, deadline_s=90.0):
+    """The supervisor's recovery report once it counts ``outcome``."""
+    import time
+
+    deadline = time.time() + deadline_s
+    while time.time() < deadline:
+        report = sup.recovery_report()
+        if report["outcomes"].get(outcome, 0) >= 1:
+            return report
+        time.sleep(0.1)
+    raise AssertionError(
+        f"supervision never reported {outcome!r}: {sup.recovery_report()}"
+    )
+
+
+def live_devices(report):
+    """The devices the live shard children of a recovery report took."""
+    return {r["device"] for r in report["shards"] if r["state"] == "live"}

@@ -1,0 +1,50 @@
+"""Process-native cluster: real OS-process shards behind a
+y-websocket-compatible gateway.
+
+Layering (each importable without jax until a provider is built):
+
+- :mod:`.config` — ``YTPU_CLUSTER_*`` / ``YTPU_GATEWAY_*`` knobs
+- :mod:`.rpc` — envelope-121 RPC framing over length-prefixed TCP, plus
+  :class:`SocketTransport`, the threaded session transport with the
+  drain-then-join shutdown contract
+- :mod:`.shard` — one shard = one process wrapping one ``TpuProvider``
+  (``python -m yjs_tpu_torch.cluster.shard``)
+- :mod:`.supervisor` — spawn/monitor/restart/fail-over, federated
+  metrics, structured recovery report
+- :mod:`.gateway` — the wire-compatible front door (y-websocket and
+  raw-session dialects) and :class:`LocalCluster`, the in-process
+  facade for tests and the bench baseline
+"""
+
+from .config import ClusterConfig, GatewayConfig  # noqa: F401
+from .gateway import (  # noqa: F401
+    Gateway,
+    LocalCluster,
+    encode_room_preamble,
+)
+from .rpc import (  # noqa: F401
+    FrameConn,
+    RpcBusy,
+    RpcClient,
+    RpcClosed,
+    RpcError,
+    RpcServer,
+    SocketTransport,
+)
+from .supervisor import Supervisor  # noqa: F401
+
+__all__ = [
+    "ClusterConfig",
+    "FrameConn",
+    "Gateway",
+    "GatewayConfig",
+    "LocalCluster",
+    "RpcBusy",
+    "RpcClient",
+    "RpcClosed",
+    "RpcError",
+    "RpcServer",
+    "SocketTransport",
+    "Supervisor",
+    "encode_room_preamble",
+]
