@@ -176,7 +176,47 @@ script exits non-zero:
    byte (in canonical form once a shard replayed its WAL, which merges
    structs that live flushes kept apart) and its state vector the twin's
    as a map;
-13. kernels: each kernel against its plain version on the card at its
+13. session path, under ``YTPU_SYNC_DEVICE=1`` and ``YTPU_EXPORT_DEVICE=1``:
+   two providers on the card, A and B, each ``TpuProvider(2048)`` with a
+   WAL (rooms cut from the README's 4096 for time), one session pair a
+   room over one ``PipeNetwork`` behind a seeded ``NetworkFaultInjector``
+   (drop 0.05, duplicate 0.02, reorder 0.05, delay 0.05, one partition
+   that heals), beside a CPU twin pair (``device="cpu"``, in a spawned
+   process of its own, each step beside the card's) driven by the same
+   seeded injector and schedule:
+   - each room's fixture trace cut into four updates (each client's
+     structs at a quarter, a half and three quarters of its clock; cut
+     by eight spawned workers), dealt between A and B in four rounds,
+     each round receive, flush, tick the sessions and settle;
+   - after round 2 B is killed without a checkpoint, recovered from its
+     WAL on the card, and its sessions catch up by delta replay (A's
+     sessions resume, none resyncs in full);
+   - 32 ``examples/torch_socket_connector.py`` clients over loopback TCP
+     on 32 rooms of A, ``--provider`` sessions served on this thread
+     (``yjs_tpu_torch.cluster.gateway.ProviderHost``): each syncs, then all edit at once eight times;
+     edit-to-visible is the time until A's flushed state vector covers
+     the edit; every client converges with A, B takes the edits;
+   - after each round the frames (a digest of every frame in order),
+     A's and B's device tables byte for byte and every room's state
+     vector equal the twin's; after the TCP edits, whose timing the
+     twin cannot replay (its A takes the same updates afterwards), the
+     states: state vectors, and full diffs byte for byte but in the TCP
+     rooms (canonical there); every room on A and B equals a CPU ``Doc``
+     fed its whole trace and its TCP edits (text, state vector as a map,
+     full diff in canonical form; eight spawned workers);
+   - ``scripts/torch_ytpu_stats.py --demo --json``,
+     ``scripts/torch_ytpu_top.py --demo --once --plain`` and
+     ``examples/torch_server_demo.py`` as child processes on the card
+     beside those checks, then A's checkpoint and
+     ``scripts/torch_ytpu_top.py <dir> --once --plain`` over A's and B's
+     metrics snapshots: each child must exit 0 with its expected rows
+     (no child and no worker runs while the rounds and the TCP edits
+     are timed);
+   with rounds, ticks and seconds to converge, the session counters
+   (frames sent, dropped, retransmitted, repairs), A's flush elements a
+   second, B's kill-to-caught-up seconds and TCP edit-to-visible p50 and
+   p99;
+14. kernels: each kernel against its plain version on the card at its
    path's largest shapes (exact), with times from CUDA events (``ms``:
    per call, launch gaps included; the YATA steps restore their tables
    before each timed launch and time it alone), device time from
@@ -237,9 +277,10 @@ script exits non-zero:
    one kernel), ``ms_obs_off``, ``host_us``, ``graph_ms`` (50 calls
    replayed from a CUDA graph), ``lanes_a_thread`` and ``tiles``;
    every row adds ``launches_fleet``, ``launches_geo``,
-   ``launches_capacity`` and ``launches_cluster``, its launches on the
-   four service paths (the cluster's in its shard children);
-14. the last line: ``{"ok": true, "device": {...}}``.
+   ``launches_capacity``, ``launches_cluster`` and ``launches_session``,
+   its launches on the five service paths (the cluster's in its shard
+   children);
+15. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3209,6 +3250,761 @@ def _cluster_path(traces, smi, device, n_docs, n_rooms) -> dict:
     return fig
 
 
+# -- phase 13: peer sessions between two providers on the card --------------------
+
+N_SESSION_ROOMS = 2048  # one session pair a room; cut from 4096 for time
+# every flush (K1), the batched state vectors (K9) and full diffs and the
+# checkpoint (K10, under YTPU_SYNC_DEVICE=1), the text exports (K8,
+# under YTPU_EXPORT_DEVICE=1)
+SESSION_LAUNCHED = ("apply_lanes", "state_vector", "diff_mask", "list_ranks")
+N_SESSION_ROUNDS = 4  # a trace cut into four updates, one dealt a round
+SESSION_KILL_AFTER = 2  # rounds before B is killed
+SESSION_CHAOS = dict(seed=15, drop=0.05, duplicate=0.02, reorder=0.05,
+                     delay=0.05)
+SESSION_PARTITION = (1, 2, 3)  # round, its tick, pump rounds the link is down
+SESSION_SETTLE_TICKS = 400
+SESSION_QUIET_TICKS = 1
+N_TCP_CLIENTS = 32
+N_TCP_EDITS = 8  # a client
+TCP_EDIT_GAP_S = 0.1
+TCP_WAIT_S = 120.0
+CHILD_WAIT_S = 300.0
+
+
+def _trace_pieces(trace: bytes) -> list[bytes]:
+    """``trace`` as ``N_SESSION_ROUNDS`` incremental updates whose merge
+    is the trace: each client's structs cut at a quarter, a half and
+    three quarters of its clock (prefixes rebuilt from snapshots that
+    delete nothing), the last piece carrying the rest and the whole
+    delete set."""
+    import yjs_tpu_torch as Y
+    from yjs_tpu_torch.core import DeleteSet
+    from yjs_tpu_torch.utils.snapshot import (
+        create_doc_from_snapshot, create_snapshot,
+    )
+
+    doc = Y.Doc(gc=False)
+    Y.apply_update(doc, trace)
+    full = Y.decode_state_vector(Y.encode_state_vector(doc))
+    n = N_SESSION_ROUNDS
+    prefixes = []
+    for k in range(1, n):
+        cut = {c: clock * k // n for c, clock in full.items()}
+        prefix = create_doc_from_snapshot(
+            doc, create_snapshot(DeleteSet(), cut), Y.Doc(gc=False)
+        )
+        prefixes.append(Y.encode_state_as_update(prefix))
+    prefixes.append(trace)
+    out, prev = [], None
+    for p in prefixes:
+        out.append(p if prev is None else Y.diff_update(
+            p, Y.encode_state_vector_from_update(prev)))
+        prev = p
+    return out
+
+
+def _trace_oracle(updates: list[bytes]) -> tuple:
+    """A CPU ``Doc`` fed ``updates``: its text, state vector and full
+    diff in canonical form."""
+    import yjs_tpu_torch as Y
+
+    doc = Y.Doc(gc=False)
+    for u in updates:
+        Y.apply_update(doc, u)
+    return (doc.get_text("text").to_string(),
+            Y.decode_state_vector(Y.encode_state_vector(doc)),
+            Y.merge_updates([Y.encode_state_as_update(doc)]))
+
+
+def _canonical_check_job(job):
+    """``(room, side)`` of each full diff whose canonical form is not
+    ``canon``; equal diffs are merged once (rooms dealt alike often give
+    the same bytes)."""
+    import yjs_tpu_torch as Y
+
+    canon, states = job
+    same: dict[bytes, bool] = {}
+    for _key, state in states:
+        if state not in same:
+            same[state] = Y.merge_updates([state]) == canon
+    return [key for key, state in states if not same[state]]
+
+
+def _pin_sids(start: int) -> None:
+    """Session ids seed each session's retransmit backoff: the card's
+    pair and its CPU twin number theirs alike."""
+    import itertools
+
+    from yjs_tpu_torch.sync import session as session_mod
+
+    session_mod._SID = itertools.count(start)
+
+
+class SessionPair:
+    """Providers A and B, each ``TpuProvider(n_rooms)`` with a WAL, and
+    one session pair a room over one ``PipeNetwork`` behind a seeded
+    ``NetworkFaultInjector``; every frame the network takes goes into a
+    running digest, and A's flushes are timed."""
+
+    def __init__(self, rooms: list[str], device: str, root: Path):
+        import hashlib
+
+        from yjs_tpu_torch.provider import TpuProvider
+        from yjs_tpu_torch.resilience import (
+            NetChaosConfig, NetworkFaultInjector,
+        )
+        from yjs_tpu_torch.sync.session import SessionConfig
+        from yjs_tpu_torch.sync.transport import PipeNetwork
+
+        self.rooms = rooms
+        self.device = device
+        self.root = root
+        self.cfg = SessionConfig(
+            seed=SESSION_CHAOS["seed"], retry_base=2, retry_cap=8,
+            retry_max=6, retry_jitter=0.25, antientropy=16, heartbeat=0,
+            liveness=0, hello_timeout=0,
+        )
+        self.injector = NetworkFaultInjector(NetChaosConfig(**SESSION_CHAOS))
+        self.net = PipeNetwork(self.injector)
+        self.digest = hashlib.blake2b(digest_size=16)
+        self.n_frames = 0
+        enqueue = self.net._enqueue
+
+        def spy(src, dst, frame):
+            self.digest.update(src.name.encode() + b"\0" + bytes(frame))
+            self.n_frames += 1
+            enqueue(src, dst, frame)
+
+        self.net._enqueue = spy
+        self.a = TpuProvider(len(rooms), device=device,
+                             wal_dir=str(root / "a"))
+        self.b = TpuProvider(len(rooms), device=device,
+                             wal_dir=str(root / "b"))
+        self.flush_s = 0.0
+        self.killed_rows: list[dict] = []  # B's sessions' counters at its kill
+        self.links: dict[str, tuple] = {}
+        _pin_sids(1)
+        for g in rooms:
+            ta, tb = self.net.pair(f"A:{g}", f"B:{g}")
+            self.a.session(g, "B", self.cfg).connect(ta)
+            self.b.session(g, "A", self.cfg).connect(tb)
+            self.links[g] = (ta, tb)
+
+    def sync(self) -> None:
+        if self.device != "cpu":
+            torch.cuda.synchronize()
+
+    def flush(self) -> None:
+        self.sync()
+        t0 = time.perf_counter()
+        self.a.flush()
+        self.sync()
+        self.flush_s += time.perf_counter() - t0
+        self.b.flush()
+
+    def tick(self) -> None:
+        self.net.pump()
+        self.flush()
+        self.a.tick_sessions()
+        self.b.tick_sessions()
+
+    def quiet(self) -> bool:
+        if self.net.in_flight:
+            return False
+        return all(s.outbox_depth == 0 for p in (self.a, self.b)
+                   for s in p._sessions.values())
+
+    def settle(self, partition_at: int | None = None) -> int:
+        """Ticks until the wire and every outbox stayed empty for
+        ``SESSION_QUIET_TICKS`` ticks; a partition opens at tick
+        ``partition_at`` for ``SESSION_PARTITION[2]`` pump rounds."""
+        quiet = 0
+        for n in range(1, SESSION_SETTLE_TICKS + 1):
+            if n == partition_at:
+                self.injector._partition_left = SESSION_PARTITION[2]
+            self.tick()
+            quiet = quiet + 1 if self.quiet() else 0
+            if quiet >= SESSION_QUIET_TICKS and n > (partition_at or 0):
+                return n
+        raise AssertionError(
+            f"sessions not settled in {SESSION_SETTLE_TICKS} ticks")
+
+    def deal(self, k: int, piece: list[bytes]) -> tuple[int, int]:
+        """Round ``k``: each room's trace's ``k``-th piece (``piece``, one
+        a trace) to A or to B, in turn."""
+        n_a = 0
+        for i, g in enumerate(self.rooms):
+            target = self.a if (i + k) % 2 == 0 else self.b
+            n_a += target is self.a
+            target.receive_update(g, piece[i % len(piece)])
+        return n_a, len(self.rooms) - n_a
+
+    def play_round(self, k: int, piece: list[bytes],
+                   partition_at: int | None) -> tuple:
+        """Deal, flush, tick the sessions and settle: ``(dealt, ticks)``."""
+        dealt = self.deal(k, piece)
+        self.flush()
+        self.a.tick_sessions()
+        self.b.tick_sessions()
+        return dealt, self.settle(partition_at)
+
+    def take_to_a(self, updates: dict[str, list[bytes]]) -> int:
+        """``updates`` into A's rooms, then settle: the ticks taken."""
+        for g, ups in updates.items():
+            for u in ups:
+                self.a.receive_update(g, u)
+        return self.settle()
+
+    def fingerprint(self) -> tuple:
+        """The frames so far (count and digest) and A's and B's device
+        tables (dtype, shape and a digest of their bytes)."""
+        import hashlib
+
+        tables = {}
+        for name, p in (("A", self.a), ("B", self.b)):
+            for t in ("_right", "_deleted", "_starts"):
+                u = getattr(p.engine, t)
+                if u is not None:
+                    u = u.cpu().contiguous()
+                    u = (str(u.dtype), tuple(u.shape), hashlib.blake2b(
+                        u.numpy(), digest_size=16).digest())
+                tables[f"{name}'s {t}"] = u
+        return self.n_frames, self.digest.digest(), tables
+
+    def states(self) -> dict:
+        """Every room's full diff and state vector, on A and on B."""
+        out = {}
+        for name, p in (("A", self.a), ("B", self.b)):
+            docs = [p.doc_id(g) for g in self.rooms]
+            out[name] = (p.engine.encode_states_batched(docs),
+                         p.engine.state_vectors_batched(docs))
+        return out
+
+    def texts(self, rooms: list[str]) -> list[tuple[str, str]]:
+        return [(self.a.text(g), self.b.text(g)) for g in rooms]
+
+    def close(self) -> None:
+        self.a.close(checkpoint=False)
+        self.b.close(checkpoint=False)
+
+    def kill_and_recover_b(self) -> float:
+        """B dies without a checkpoint (its WAL handle dropped), is
+        recovered from its WAL on its device, and its sessions re-attach
+        armed with the journaled ack floors; returns the recover wall."""
+        from yjs_tpu_torch.provider import TpuProvider
+
+        for ta, tb in self.links.values():
+            self.net.kill(ta, tb)
+        self.killed_rows = self.b.sessions_snapshot()
+        self.b.wal.abandon()
+        self.b = None
+        self.sync()
+        t0 = time.perf_counter()
+        self.b = TpuProvider.recover(str(self.root / "b"),
+                                     device=self.device)
+        self.sync()
+        wall = time.perf_counter() - t0
+        _pin_sids(1 << 20)
+        for g in self.rooms:
+            ta, tb = self.net.pair(f"A:{g}", f"B:{g}")
+            self.a.session(g, "B", self.cfg).attach(ta)
+            self.b.session(g, "A", self.cfg).connect(tb)
+            self.links[g] = (ta, tb)
+        return wall
+
+    def state_vectors(self, p) -> list[dict]:
+        return p.engine.state_vectors_batched([p.doc_id(g) for g in self.rooms])
+
+    def counters(self) -> dict:
+        rows = (self.a.sessions_snapshot() + self.b.sessions_snapshot()
+                + self.killed_rows)
+        out = {k: sum(r[k] for r in rows)
+               for k in ("sent", "retransmits", "repairs", "resumes",
+                         "full_resyncs")}
+        out.update(self.injector.fault_counts)
+        return out
+
+
+TWIN_THREADS = 4  # the twin's CPU kernels, beside the card pair's thread
+
+
+def _twin_main(conn, rooms: list[str], root: str) -> None:
+    """The CPU twin pair's process: builds a ``SessionPair`` on the CPU,
+    then runs each ``(method, args)`` that arrives until ``close``; each
+    step, the build included, answers ``(True, result)`` or ``(False,
+    traceback)``."""
+    import traceback
+
+    torch.set_num_threads(TWIN_THREADS)
+    pair, op = None, None
+    while op != "close":
+        try:
+            if pair is None:
+                pair = SessionPair(rooms, "cpu", Path(root))
+                out = None
+            else:
+                op, args = conn.recv()
+                out = getattr(pair, op)(*args)
+            conn.send((True, out))
+        except BaseException:
+            conn.send((False, traceback.format_exc()))
+            return
+
+
+class TwinPair:
+    """The CPU twin ``SessionPair`` in a spawned process of its own:
+    :meth:`start` sends it a step, which runs beside the card pair's,
+    and :meth:`result` waits for that step's answer (the first answer is
+    the build's)."""
+
+    def __init__(self, rooms: list[str], root: Path):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=_twin_main,
+                                args=(child, rooms, str(root)), daemon=True)
+        self.proc.start()
+        child.close()
+
+    def start(self, op: str, *args) -> None:
+        self.conn.send((op, args))
+
+    def result(self):
+        ok, out = self.conn.recv()
+        check(ok, f"the CPU twin failed: {out}")
+        return out
+
+    def call(self, op: str, *args):
+        self.start(op, *args)
+        return self.result()
+
+    def stop(self) -> None:
+        if self.proc.is_alive():
+            self.proc.kill()
+        self.proc.join(30)
+
+
+def session_twins(card: SessionPair, twin_fp: tuple, what: str) -> None:
+    """The card's pair equals its CPU twin: the same frames in the same
+    order, and A's and B's device tables byte for byte."""
+    n, digest, tables = card.fingerprint()
+    check(n == twin_fp[0] and digest == twin_fp[1],
+          f"{what}: the frames differ from the twin's ({n} vs {twin_fp[0]})")
+    for name, t in tables.items():
+        check(t == twin_fp[2][name], f"{what}: {name} differs from the twin's")
+
+
+def _tcp_clients(pair: SessionPair, rooms: list[str], seed: int) -> dict:
+    """``N_TCP_CLIENTS`` socket clients (``examples/torch_socket_connector``)
+    over loopback TCP, one a room of A, each a ``--provider`` session
+    served by A on this thread: each syncs, then all edit at once
+    ``N_TCP_EDITS`` times; an edit is visible once A's flushed state
+    vector covers it.  Returns the clients' updates a room and the
+    edit-to-visible times."""
+    import socket
+
+    import yjs_tpu_torch as Y
+    from yjs_tpu_torch.sync.session import SessionConfig
+
+    from yjs_tpu_torch.cluster.gateway import ProviderHost
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    from torch_socket_connector import SocketConnector
+
+    cfg = SessionConfig(seed=seed, heartbeat=0, liveness=0, hello_timeout=0)
+    host = ProviderHost(pair.a, config=cfg)
+    port = host.listen(0)
+    gen = random.Random(seed)
+    clients = []
+    sent: dict[str, list[bytes]] = {g: [] for g in rooms}
+    for k, g in enumerate(rooms):
+        doc = Y.Doc(gc=False)
+        doc.client_id = 800000 + k
+
+        def record(u, origin, d, _g=g):
+            if origin is None:  # a local edit, not the server's
+                sent[_g].append(bytes(u))
+
+        doc.on("update", record)
+        sock = socket.create_connection(("127.0.0.1", port))
+        conn = SocketConnector(doc, sock, config=cfg, room=g, peer=f"tcp-{k}")
+        conn.connect()
+        clients.append((g, doc, conn))
+    a = pair.a
+
+    def pump_until(cond, what):
+        deadline = time.perf_counter() + TCP_WAIT_S
+        while not cond():
+            check(time.perf_counter() < deadline, f"TCP clients: {what}")
+            if not host.pump():
+                time.sleep(0.002)
+
+    def synced():
+        for g, doc, conn in clients:
+            with conn.lock:
+                sv = Y.decode_state_vector(Y.encode_state_vector(doc))
+            if conn.session.state != "live" or sv != a.state_vector(g):
+                return False
+        return True
+
+    t0 = time.perf_counter()
+    pump_until(synced, "the initial sync did not converge")
+    t_sync = time.perf_counter() - t0
+    pending = []  # (room, client id, clock, t0)
+    lat = []
+    t0 = time.perf_counter()
+    for j in range(N_TCP_EDITS):
+        for g, doc, conn in clients:
+            with conn.lock:
+                t = doc.get_text("text")
+                t.insert(gen.randrange(len(t) + 1), f"<{g}:{j}>")
+                clock = Y.decode_state_vector(
+                    Y.encode_state_vector(doc))[doc.client_id]
+            pending.append((g, doc.client_id, clock, time.perf_counter()))
+        gap = time.perf_counter() + TCP_EDIT_GAP_S
+        while time.perf_counter() < gap or (j == N_TCP_EDITS - 1 and pending):
+            host.pump()
+            now = time.perf_counter()
+            left = []
+            for g, cid, clock, te in pending:
+                if a.engine.state_vector(a.doc_id(g)).get(cid, 0) >= clock:
+                    lat.append(now - te)
+                else:
+                    left.append((g, cid, clock, te))
+            pending = left
+            check(now - t0 < TCP_WAIT_S, "TCP edits never became visible")
+
+    def converged():
+        for g, doc, conn in clients:
+            with conn.lock:
+                text = doc.get_text("text").to_string()
+                sv = Y.decode_state_vector(Y.encode_state_vector(doc))
+            if text != a.text(g) or sv != a.state_vector(g):
+                return False
+        return True
+
+    pump_until(converged, "the clients did not converge with A")
+    t_converge = time.perf_counter() - t0
+    for _g, _doc, conn in clients:
+        conn.close()
+        check(conn.join(timeout=10.0), "a TCP client's threads did not join")
+    host.close()
+    return {"sent": sent, "lat": lat, "t_sync": t_sync,
+            "t_converge": t_converge}
+
+
+def _child_runs(device: str, snap_dir: Path | None = None) -> dict:
+    """The port's operator scripts and server demo as child processes,
+    on the card (``--device cpu`` when the phase runs on the CPU), with
+    the rows each must print; the snapshot directory's dashboard when
+    ``snap_dir`` is given."""
+    extra = ["--device", "cpu"] if device == "cpu" else []
+    if snap_dir is not None:
+        return {"torch_ytpu_top <dir> --once --plain": (
+            ["scripts/torch_ytpu_top.py", str(snap_dir), "--once", "--plain"],
+            ("FLEET", " " * 13 + "a ", " " * 13 + "b "))}
+    return {
+        "torch_ytpu_stats --demo --json": (
+            ["scripts/torch_ytpu_stats.py", "--demo", "--json"] + extra,
+            ('"counters"', '"ytpu_net_')),
+        "torch_ytpu_top --demo --once --plain": (
+            ["scripts/torch_ytpu_top.py", "--demo", "--once", "--plain"]
+            + extra, ("provider-a", "provider-b", "fleet verdict")),
+        "torch_server_demo": (
+            ["examples/torch_server_demo.py"] + extra,
+            ("demo OK", f"provider on {'cpu' if device == 'cpu' else 'cuda'}")),
+    }
+
+
+class _Child:
+    """One child process and a thread that waits for it, so its wall is
+    its own even while this thread drives the sessions."""
+
+    def __init__(self, argv: list[str], env: dict):
+        import threading
+
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable] + argv, cwd=str(ROOT), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        self.out = self.err = ""
+        self.wall = None
+        self._waiter = threading.Thread(target=self._wait, daemon=True)
+        self._waiter.start()
+
+    def _wait(self) -> None:
+        self.out, self.err = self.proc.communicate()
+        self.wall = time.perf_counter() - self.t0
+
+    def join(self, timeout: float) -> None:
+        self._waiter.join(timeout)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self._waiter.join(30)
+
+
+def _start_children(runs: dict) -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    return {name: _Child(argv, env) for name, (argv, _want) in runs.items()}
+
+
+def _finish_children(runs: dict, children: dict) -> dict:
+    """Wait for each child: it must exit 0 and print its rows; returns
+    each one's seconds from its start to its exit."""
+    try:
+        for name, child in children.items():
+            child.join(CHILD_WAIT_S)
+            check(child.wall is not None, f"{name} did not exit in "
+                  f"{CHILD_WAIT_S:.0f}s")
+            check(child.proc.returncode == 0,
+                  f"{name} exited {child.proc.returncode}: {child.err[-2000:]}")
+            for want in runs[name][1]:
+                check(want in child.out, f"{name} printed no {want!r}: "
+                      f"{child.out[-1500:]}")
+    finally:
+        for child in children.values():
+            child.kill()
+    return {name: child.wall for name, child in children.items()}
+
+
+def session_path(traces: list[bytes], smi: str, device: str = "cuda",
+                 n_rooms: int = N_SESSION_ROOMS) -> dict:
+    """Two providers on the card, A and B, each ``TpuProvider(n_rooms)``
+    with a WAL under ``YTPU_SYNC_DEVICE=1`` and ``YTPU_EXPORT_DEVICE=1``,
+    one session pair a room over a faulted pipe network, beside a CPU
+    twin pair driven by the same seeded injector and schedule: four
+    rounds deal each room's trace between A and B; B is killed after
+    round 2 and recovered from its WAL; TCP clients edit rooms of A;
+    the operator scripts and the server demo run as child processes.
+    The twin pair runs in a spawned process of its own, each step beside
+    the card pair's; spawned workers cut the traces and build the CPU
+    ``Doc`` oracle while the pairs are built and finish before the first
+    round, and the children start after the TCP clients, so while the
+    rounds and the edits are timed only the twin's process shares the
+    host."""
+    import shutil
+
+    saved = os.environ.get("YTPU_EXPORT_DEVICE")
+    os.environ["YTPU_EXPORT_DEVICE"] = "1"
+    root = Path(tempfile.mkdtemp(prefix="ytpu-session-"))
+    fig = {}
+    rooms = [f"s-{i:04d}" for i in range(n_rooms)]
+    n_traces = min(len(traces), n_rooms)
+    tcp_rooms = rooms[:N_TCP_CLIENTS]
+    pool = worker_pool(n_traces)
+    children = {}
+    twin = None
+    try:
+        t0 = time.perf_counter()
+        pieces_async = pool.map_async(_trace_pieces, traces[:n_traces],
+                                      chunksize=8)
+        oracle_async = pool.map_async(
+            _trace_oracle, [[t] for t in traces[:n_traces]], chunksize=8)
+        twin = TwinPair(rooms, root / "twin")
+        card = SessionPair(rooms, device, root / "card")
+        dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+        check(card.a.engine.device == dev and card.b.engine.device == dev,
+              "a session provider's engine is not on its device")
+        twin.result()  # built
+        twin.start("settle")  # the handshake, beside the card's
+        ticks = [card.settle(), twin.result()]
+        check(ticks[0] == ticks[1], f"handshake: settled in {ticks[0]} ticks, "
+              f"the twin in {ticks[1]}")
+        session_twins(card, twin.call("fingerprint"), "handshake")
+        # the workers finish before the rounds, and the children start
+        # after the TCP clients: the timed rounds, flushes, recovery and
+        # edits share the host with the twin's process alone
+        pieces = pieces_async.get()
+        oracle = oracle_async.get()
+        fig["t_setup"] = time.perf_counter() - t0
+        rounds = []
+        t_rounds = time.perf_counter()
+        for k in range(N_SESSION_ROUNDS):
+            tr = time.perf_counter()
+            part = SESSION_PARTITION[1] if k == SESSION_PARTITION[0] else None
+            piece = [p[k] for p in pieces]
+            twin.start("play_round", k, piece, part)
+            dealt, ticks = card.play_round(k, piece, part)
+            t_card = time.perf_counter() - tr
+            twin_ticks = twin.result()[1]
+            check(ticks == twin_ticks,
+                  f"round {k + 1}: settled in {ticks} ticks, the twin in "
+                  f"{twin_ticks}")
+            session_twins(card, twin.call("fingerprint"), f"round {k + 1}")
+            check(card.state_vectors(card.a) == card.state_vectors(card.b),
+                  f"round {k + 1}: A and B did not converge")
+            rounds.append({"ticks": ticks, "s": t_card,
+                           "s_twin": time.perf_counter() - tr,
+                           "dealt": dealt, "frames": card.n_frames})
+            log(f"[session] round {k + 1}: {dealt[0]} updates to A, "
+                f"{dealt[1]} to B; settled in {ticks} ticks, {t_card:.3f}s "
+                f"({rounds[-1]['s_twin']:.3f}s until the twin's answer and "
+                f"the comparison); {card.n_frames} frames so far; A and B "
+                "converged; frames and tables equal the CPU twin's")
+            if k + 1 == SESSION_KILL_AFTER:
+                twin.start("kill_and_recover_b")
+                t_kill = time.perf_counter()
+                fig["recover"] = card.kill_and_recover_b()
+                cu = card.settle()
+                check(card.state_vectors(card.a) == card.state_vectors(card.b),
+                      "B did not catch up with A")
+                fig["kill_to_caught_up"] = time.perf_counter() - t_kill
+                fig["recover_twin"] = twin.result()
+                twin_cu = twin.call("settle")
+                check(cu == twin_cu, f"catch-up ticks {cu}, the twin's {twin_cu}")
+                fig["catch_up_ticks"] = cu
+                session_twins(card, twin.call("fingerprint"), "B recovered")
+                c = card.counters()
+                log(f"[session] B killed after round {k + 1} (no "
+                    f"checkpoint), recovered from its WAL on the card in "
+                    f"{fig['recover']:.3f}s (the twin {fig['recover_twin']:.3f}s "
+                    f"beside it), caught up by delta replay in {cu} ticks: "
+                    f"kill to caught up {fig['kill_to_caught_up']:.3f}s; "
+                    f"sessions resumed {c['resumes']}, full resyncs "
+                    f"{c['full_resyncs']} (B's killed sessions included; "
+                    f"{smi})")
+        fig["t_rounds"] = time.perf_counter() - t_rounds
+        fig["rounds"] = rounds
+        c = card.counters()
+        check(all(r["full_resyncs"] == 1 and r["resumes"] == 1
+                  for r in card.a.sessions_snapshot()),
+              "A's sessions did not resume B by delta replay (one full "
+              "resync and one resume a session)")
+        check(c["net_partition"] >= SESSION_PARTITION[2],
+              "the partition never opened")
+        fig["counters"] = c
+        elements = sum(sum(sv.values()) for sv in card.state_vectors(card.a))
+        fig["elements"] = elements
+        fig["flush_s"] = card.flush_s
+        log(f"[session] converged: {N_SESSION_ROUNDS} rounds, "
+            f"{sum(r['ticks'] for r in rounds) + fig['catch_up_ticks']} "
+            f"ticks, {fig['t_rounds']:.3f}s with the twin's comparisons; "
+            f"frames sent {c['sent']} ({card.n_frames} through the network), "
+            f"dropped {c['net_drop']}, duplicated {c['net_dup']}, delayed "
+            f"{c['net_delay']}, reordered rounds {c['net_reorder']}, "
+            f"partitioned rounds {c['net_partition']}; retransmitted "
+            f"{c['retransmits']}; repairs {c['repairs']} (the session "
+            "counters of A's sessions, B's and B's killed ones)")
+        log(f"[session] A's flushes: {elements} elements in "
+            f"{card.flush_s:.3f}s = {elements / card.flush_s:.0f} elements/s "
+            f"({smi})")
+
+        # TCP clients on A (the twin's A takes their updates afterwards)
+        t0 = time.perf_counter()
+        tcp = _tcp_clients(card, tcp_rooms, seed=71)
+        fig["tcp"] = {k: tcp[k] for k in ("t_sync", "t_converge")}
+        twin.start("take_to_a", tcp["sent"])
+        ticks = [card.settle(), twin.result()]
+        lat = tcp["lat"]
+        check(len(lat) == N_TCP_CLIENTS * N_TCP_EDITS,
+              f"{len(lat)} TCP edits timed")
+        fig["tcp_p50_ms"] = _pct(lat, 0.50) * 1e3
+        fig["tcp_p99_ms"] = _pct(lat, 0.99) * 1e3
+        log(f"[session] TCP: {N_TCP_CLIENTS} socket clients "
+            f"(torch_socket_connector, --provider sessions on A), synced in "
+            f"{tcp['t_sync']:.3f}s; {len(lat)} concurrent edits, "
+            f"edit-to-visible p50 {fig['tcp_p50_ms']:.1f} ms, p99 "
+            f"{fig['tcp_p99_ms']:.1f} ms; every client converged with A in "
+            f"{tcp['t_converge']:.3f}s; B took the edits in {ticks[0]} ticks "
+            f"({time.perf_counter() - t0:.1f}s, the twin's A taking them "
+            f"beside it; {smi})")
+
+        # the operator scripts and the server demo, beside the checks
+        runs = _child_runs(device)
+        children = _start_children(runs)
+
+        # every room on A and B against the CPU Doc, and against the twin:
+        # the twin encodes its states and the workers merge full diffs
+        # while this thread reads the card's
+        t0 = time.perf_counter()
+        twin.start("states")
+        tcp_async = pool.map_async(
+            _trace_oracle,
+            [[traces[i % n_traces]] + tcp["sent"][g]
+             for i, g in enumerate(tcp_rooms)])
+        states = card.states()
+        t_states = time.perf_counter() - t0
+        states.update((f"twin {k}", v) for k, v in twin.result().items())
+        want = {g: oracle[i % n_traces] for i, g in enumerate(rooms)}
+        want.update(zip(tcp_rooms, tcp_async.get()))
+        jobs = {}
+        for i, g in enumerate(rooms):
+            for side in ("A", "B"):
+                check(states[side][1][i] == want[g][1],
+                      f"{g}: {side}'s state vector differs from the CPU Doc")
+                check(states[side][1][i] == states[f"twin {side}"][1][i],
+                      f"{g}: {side}'s state vector differs from the twin's")
+                if g not in tcp_rooms:
+                    check(states[side][0][i] == states[f"twin {side}"][0][i],
+                          f"{g}: {side}'s full diff differs from the twin's")
+            sides = ("A", "B", "twin A", "twin B") if g in tcp_rooms else ("A", "B")
+            key = g if g in tcp_rooms else i % n_traces
+            job = jobs.setdefault(key, (want[g][2], []))
+            job[1].extend(((g, s), states[s][0][i]) for s in sides)
+        merged = pool.map_async(_canonical_check_job, list(jobs.values()),
+                                chunksize=4)
+        t_texts = time.perf_counter()
+        for name, p in (("A", card.a), ("B", card.b)):
+            bad = [g for g in rooms if p.text(g) != want[g][0]]
+            check(not bad, f"{name}'s text differs from the CPU Doc in "
+                  f"{len(bad)} rooms: {bad[:8]}")
+        t_texts = time.perf_counter() - t_texts
+        for g, texts in zip(tcp_rooms, twin.call("texts", tcp_rooms)):
+            check(texts == (want[g][0], want[g][0]),
+                  f"{g}: the twin's text differs from the CPU Doc")
+        t_merged = time.perf_counter()
+        bad = [key for part in merged.get() for key in part]
+        t_merged = time.perf_counter() - t_merged
+        check(not bad, f"full diffs differ from the CPU Doc: {bad[:8]}")
+        fig["t_oracle"] = time.perf_counter() - t0
+        log(f"[session] every one of {n_rooms} rooms on A and on B equals a "
+            "CPU Doc fed its whole trace and the TCP edits (text, state "
+            "vector as a map, full diff in canonical form), and the CPU twin "
+            f"pair (state vectors; full diffs byte for byte but in the "
+            f"{len(tcp_rooms)} TCP rooms, canonical there): "
+            f"{fig['t_oracle']:.1f}s (the card's states {t_states:.1f}s, "
+            f"its {2 * n_rooms} texts {t_texts:.1f}s, then the workers' "
+            f"merges {t_merged:.1f}s more)")
+
+        # the children exit, then an operator's checkpoint of A and the
+        # snapshot dashboard
+        fig["children"] = _finish_children(runs, children)
+        children = {}
+        card.sync()
+        t0 = time.perf_counter()
+        card.a.checkpoint()
+        card.sync()
+        fig["checkpoint"] = time.perf_counter() - t0
+        snap_dir = root / "snapshots"
+        snap_dir.mkdir()
+        for name, p in (("a", card.a), ("b", card.b)):
+            (snap_dir / f"{name}.json").write_text(
+                json.dumps(p.metrics_snapshot()))
+        dir_runs = _child_runs(device, snap_dir)
+        fig["children"].update(
+            _finish_children(dir_runs, _start_children(dir_runs)))
+        log(f"[session] A's checkpoint {fig['checkpoint']:.3f}s; children "
+            "exited 0 with their rows (s from start to exit; the first three "
+            "ran beside the oracle checks): " + ", ".join(
+                f"{k} {v:.1f}" for k, v in fig["children"].items()))
+        card.close()
+        twin.call("close")
+    finally:
+        for child in children.values():
+            child.kill()
+        if twin is not None:
+            twin.stop()
+        pool.terminate()
+        pool.join()
+        restore_env("YTPU_EXPORT_DEVICE", saved)
+        shutil.rmtree(root, ignore_errors=True)
+    return fig
+
 def cuda_ms(fn, n: int = TIMED_LAUNCHES) -> float:
     """Mean ms of ``fn()`` over ``n`` calls, from CUDA events, after a
     warm-up call."""
@@ -4406,6 +5202,21 @@ def main() -> int:
             f"children's launches {service['cluster']}")
         check(service["cluster"].get("apply_lanes", 0) > 0,
               "apply_lanes never launched in a cluster shard")
+        # peer sessions between two providers on the card
+        K.reset_launches()
+        t0 = time.perf_counter()
+        session_path(traces, dev["smi"])
+        torch.cuda.synchronize()
+        service["session"] = dict(K.launches)
+        log(f"[session] wall {time.perf_counter() - t0:.1f}s; launches "
+            f"{service['session']}")
+        for name in SESSION_LAUNCHED:
+            check(service["session"][name] > 0,
+                  f"{name} never launched on the session path")
+        idle = sorted(k for k, v in service["session"].items() if v == 0)
+        log(f"[session] kernels not launched on this path: {idle} (no "
+            "mesh, so no sharded kernel; the YATA, planner and broadcast "
+            "kernels serve other lanes)")
     finally:
         restore_env("YTPU_SYNC_DEVICE", saved_env)
     check(service["fleet"]["diff_mask"] > 0,

@@ -6,8 +6,8 @@ Every shard child runs ``python -m yjs_tpu_torch.cluster.shard --device
 cpu`` (``tests/torch_service.py``).  The failover case runs under both
 provider backends.  The launcher cases run
 ``scripts/torch_ytpu_cluster.py``; the ``ytpu_top`` case renders a port
-cluster's snapshot directory with the JAX package's dashboard (the two
-write the same file-drop format).  A :class:`KernelError` in a shard
+cluster's snapshot directory with the port's dashboard
+(``scripts/torch_ytpu_top.py``).  A :class:`KernelError` in a shard
 (its tick loop or an RPC call) stops it: the error reaches the caller
 and the process exits non-zero; a child asked for the CUDA device on a
 host without one fails its spawn instead of coming up on the CPU.
@@ -222,7 +222,7 @@ def test_fleet_recovery_report_matches_supervisor_shape(tmp_path):
 def test_ytpu_top_cluster_mode_renders_supervision_panel(tmp_path):
     """``ytpu_top --cluster`` renders a supervision report, and the
     snapshot directory a port cluster dumps."""
-    top = load_script("ytpu_top")
+    top = load_script("torch_ytpu_top")
     report = {
         "kind": "cluster",
         "epoch": 2,

@@ -423,7 +423,7 @@ def test_ytpu_top_renders_fleet_table(backend):
     spec = importlib.util.spec_from_file_location(
         "ytpu_top_fleet_test",
         pathlib.Path(__file__).resolve().parent.parent
-        / "scripts" / "ytpu_top.py",
+        / "scripts" / "torch_ytpu_top.py",
     )
     top = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(top)

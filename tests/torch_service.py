@@ -1,11 +1,12 @@
 """Shared pieces of the port's service-stack suites (fleet, replication,
-geo, overload, cluster): the port's providers, fleets and cluster
-shards placed on the CPU, and the seeded-room helpers the JAX package's
-fleet suites each define.
+geo, overload, cluster, sessions, resilience, observability): the port's
+engines, providers, fleets and cluster shards placed on the CPU, and
+the seeded-room helpers the JAX package's fleet suites each define.
 
-``TpuProvider``, ``FleetRouter``, ``Supervisor`` and ``ShardServer``
-here are the port's classes with ``device="cpu"`` as their default, so
-every provider a test builds, directly, through a fleet (constructor,
+``BatchEngine``, ``TpuProvider``, ``FleetRouter``, ``Supervisor`` and
+``ShardServer`` here are the port's classes with ``device="cpu"`` as
+their default, so every engine and provider a test builds, directly,
+through a fleet (constructor,
 ``add_shard``, ``revive_shard``, ``recover``) or in a shard process,
 runs the kernels' plain PyTorch versions.  ``BACKENDS`` are the
 provider backends the suites run under: ``"cpu"`` (every doc on the CPU
@@ -20,6 +21,7 @@ from yjs_tpu_torch.cluster import Supervisor as _Supervisor
 from yjs_tpu_torch.cluster.shard import ShardServer as _ShardServer
 from yjs_tpu_torch.fleet import FailoverConfig
 from yjs_tpu_torch.fleet import FleetRouter as _FleetRouter
+from yjs_tpu_torch.ops import BatchEngine as _BatchEngine
 from yjs_tpu_torch.persistence import WalConfig
 from yjs_tpu_torch.provider import TpuProvider as _TpuProvider
 from yjs_tpu_torch.sync.session import SessionConfig
@@ -41,6 +43,13 @@ class TpuProvider(_TpuProvider):
     @classmethod
     def recover(cls, *args, device="cpu", **kwargs):
         return super().recover(*args, device=device, **kwargs)
+
+
+class BatchEngine(_BatchEngine):
+    """The port's engine, on the CPU unless told otherwise."""
+
+    def __init__(self, *args, device="cpu", **kwargs):
+        super().__init__(*args, device=device, **kwargs)
 
 
 class FleetRouter(_FleetRouter):

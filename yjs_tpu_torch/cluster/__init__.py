@@ -12,14 +12,17 @@ Layering (each importable without jax until a provider is built):
 - :mod:`.supervisor` — spawn/monitor/restart/fail-over, federated
   metrics, structured recovery report
 - :mod:`.gateway` — the wire-compatible front door (y-websocket and
-  raw-session dialects) and :class:`LocalCluster`, the in-process
-  facade for tests and the bench baseline
+  raw-session dialects), :class:`LocalCluster`, the in-process
+  facade for tests and the bench baseline, and :class:`ProviderHost`,
+  one provider's own sessions served over sockets
 """
 
 from .config import ClusterConfig, GatewayConfig  # noqa: F401
 from .gateway import (  # noqa: F401
     Gateway,
     LocalCluster,
+    ProviderHost,
+    decode_room_preamble,
     encode_room_preamble,
 )
 from .rpc import (  # noqa: F401
@@ -39,6 +42,7 @@ __all__ = [
     "Gateway",
     "GatewayConfig",
     "LocalCluster",
+    "ProviderHost",
     "RpcBusy",
     "RpcClient",
     "RpcClosed",
@@ -46,5 +50,6 @@ __all__ = [
     "RpcServer",
     "SocketTransport",
     "Supervisor",
+    "decode_room_preamble",
     "encode_room_preamble",
 ]

@@ -29,6 +29,11 @@ with the BUSY envelope (the peer retransmits — zero acked loss) and
 y-websocket frames are dropped and counted (stock clients carry no ack
 to lose; they re-sync on reconnect).
 
+:class:`ProviderHost` (end of module) serves the raw dialect from one
+in-process :class:`~yjs_tpu_torch.provider.TpuProvider` instead of a
+cluster facade: each connection is ``provider.session(room, peer)``,
+and every frame and kernel launch runs on the thread that pumps it.
+
 Failover/migration rehoming: the facade's ``on_epoch`` fires after a
 routing change; session connections :meth:`~SyncSession.rehome` (digest
 → targeted repair, not full resync) and y-websocket rooms get a fresh
@@ -39,6 +44,7 @@ from __future__ import annotations
 
 import base64
 import hashlib
+import queue
 import socket
 import struct
 import threading
@@ -405,6 +411,15 @@ def encode_room_preamble(room: str, peer: str = "peer") -> bytes:
     return enc.to_bytes()
 
 
+def decode_room_preamble(frame: bytes) -> tuple[str, str | None]:
+    """The raw-dialect hello's ``(room, peer)``; ``peer`` is None when
+    the preamble names only the room."""
+    dec = Decoder(frame)
+    room = decoding.read_var_string(dec)
+    peer = decoding.read_var_string(dec) if dec.has_content() else None
+    return room, peer
+
+
 # -- one client connection ----------------------------------------------------
 
 
@@ -567,13 +582,12 @@ class _GatewayConn:
     def _raw_serve(self, first: bytes) -> None:
         gw = self.gateway
         try:
-            dec = Decoder(first)
-            self.room = decoding.read_var_string(dec)
-            if dec.has_content():
-                self.peer = decoding.read_var_string(dec)
+            self.room, peer = decode_room_preamble(first)
         except Exception:
             gw._drop_conn(self)
             return
+        if peer is not None:
+            self.peer = peer
         host = _ClusterSessionHost(gw.cluster, self.room, self.peer)
         session = SyncSession(
             host, config=gw.session_config, peer=self.peer
@@ -929,3 +943,120 @@ class Gateway:
                         "dialect": c.dialect,
                     })
         return rows
+
+
+# -- one provider's own sessions over sockets ---------------------------------
+
+
+class ProviderHost:
+    """Raw-dialect socket peers served by one ``TpuProvider``.
+
+    A peer connects, sends the preamble (``room``, ``peer``), then speaks
+    the session protocol to ``provider.session(room, peer)``.  The accept
+    thread reads only the preamble, and each transport's rx thread only
+    queues what arrives: :meth:`pump`, on the thread that owns the
+    provider, attaches new peers, hands every queued frame and close to
+    its session, flushes the provider and ticks the host's sessions once
+    ``tick_s`` of wall time have passed.  So no kernel launches from a
+    socket thread, and the session layer sees one thread, as it must."""
+
+    def __init__(self, provider, config: SessionConfig | None = None,
+                 tick_s: float = 0.05):
+        self.provider = provider
+        self.config = config
+        self.tick_s = tick_s
+        self.sessions: dict[tuple[str, str], SyncSession] = {}
+        self._inbox: queue.SimpleQueue = queue.SimpleQueue()
+        self._listener: socket.socket | None = None
+        self._accepter: threading.Thread | None = None
+        self._stopping = False
+        self._last_tick = 0.0
+
+    def listen(self, port: int = 0, host: str = "127.0.0.1") -> int:
+        """Bind, start the accept thread; returns the bound port."""
+        srv = socket.socket()
+        srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        srv.bind((host, port))
+        srv.listen()
+        self._listener = srv
+        self._accepter = threading.Thread(
+            target=self._accept_loop, name="ytpu-provider-accept",
+            daemon=True,
+        )
+        self._accepter.start()
+        return srv.getsockname()[1]
+
+    def _accept_loop(self) -> None:
+        while not self._stopping:
+            try:
+                sock, addr = self._listener.accept()
+            except OSError:
+                return
+            # FrameConn reads exactly one frame: nothing past the
+            # preamble is consumed before the transport takes the socket
+            try:
+                room, peer = decode_room_preamble(FrameConn(sock).recv() or b"")
+            except Exception:
+                sock.close()
+                continue
+            self._inbox.put(
+                ("attach", sock, (room, peer or f"{addr[0]}:{addr[1]}"))
+            )
+
+    def _attach(self, sock: socket.socket, room: str, peer: str) -> None:
+        session = self.provider.session(room, peer, self.config)
+        transport = SocketTransport(sock, name=peer)
+        session.connect(transport)
+        on_frame, on_close = transport.on_frame, transport.on_close
+        box = self._inbox
+        transport.on_frame = lambda f, _cb=on_frame: box.put(("frame", _cb, f))
+        transport.on_close = lambda _cb=on_close: box.put(("close", _cb, None))
+        self.sessions[(room, peer)] = session
+        transport.start()
+
+    def pump(self) -> int:
+        """Handle everything queued, flush, and tick when due; returns
+        the number of queued items handled."""
+        n = 0
+        while True:
+            try:
+                kind, a, b = self._inbox.get_nowait()
+            except queue.Empty:
+                break
+            n += 1
+            if kind == "attach":
+                self._attach(a, *b)
+            elif kind == "frame":
+                a(b)
+            elif a is not None:
+                a()
+        self.provider.flush()
+        now = time.monotonic()
+        if now - self._last_tick >= self.tick_s:
+            self._last_tick = now
+            for sess in list(self.sessions.values()):
+                sess.tick()
+        return n
+
+    def serve(self, seconds: float) -> None:
+        """Pump for ``seconds`` of wall time."""
+        end = time.monotonic() + seconds
+        while time.monotonic() < end:
+            if not self.pump():
+                time.sleep(0.005)
+
+    def close(self) -> None:
+        """Stop accepting, close every session (each transport drains
+        and joins its threads)."""
+        self._stopping = True
+        if self._listener is not None:
+            try:
+                self._listener.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            self._listener.close()
+        if self._accepter is not None:
+            self._accepter.join(timeout=2.0)
+        for (room, peer) in list(self.sessions):
+            self.provider.close_session(room, peer)
+        self.sessions.clear()

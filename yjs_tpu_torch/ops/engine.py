@@ -111,8 +111,9 @@ def visible_text(mirror, rows, deleted) -> str:
     across runs, reference ContentString.js:51-66); recombine like
     YText.to_string does."""
     out = []
+    countable = mirror.row_countable  # one shadow sync, not one a row
     for r, d in zip(rows, deleted):
-        if d or not mirror.row_countable[r]:
+        if d or not countable[r]:
             continue
         content = mirror.realized_content(r)
         s = getattr(content, "str", None)
