@@ -68,7 +68,8 @@ script exits non-zero:
 6. planner path: the Python mirror's device cold planner
    (``YTPU_NO_NATIVE_PLAN=1``, ``YTPU_PLAN_SEGMENT`` unset, so the
    whole-chunk ``device`` mode) on ``BatchEngine(512)`` on the card
-   beside a CPU twin, one doc per distinct fixture trace, the first 512
+   beside a CPU twin (in a spawned process of its own, each flush beside
+   the card's), one doc per distinct fixture trace, the first 512
    of its 1024 (a 4096-doc fleet of the 1024 plans twice this chunk, its
    other 3072 docs replaying the plan cache; the depth is cut to keep the
    script's time as the service phases grow):
@@ -114,8 +115,11 @@ script exits non-zero:
 9. fleet path, under ``YTPU_SYNC_DEVICE=1`` as are the next three:
    ``FleetRouter(8, 1024)`` on the card (every shard's engine on the one
    card, replication at its default factor 1) beside a CPU twin fleet
-   ``FleetRouter(8, 1024, device="cpu")``, each journaling to its own
-   WAL root, fed the main path's traces over 4096 rooms:
+   ``FleetRouter(8, 1024, device="cpu")`` (in a spawned process of its
+   own, each step beside the card's, compared by fingerprints: each
+   doc's trimmed tables and each room's encoded state by digest), each
+   journaling to its own WAL root, fed the main path's traces over 4096
+   rooms:
    - one flush (``apply_lanes`` checked to launch at least once for each
      shard with pending rooms);
    - 64 live migrations (``migrate_doc``) and a flush, a drain of one
@@ -216,7 +220,29 @@ script exits non-zero:
    (frames sent, dropped, retransmitted, repairs), A's flush elements a
    second, B's kill-to-caught-up seconds and TCP edit-to-visible p50 and
    p99;
-14. kernels: each kernel against its plain version on the card at its
+14. gate: the port's CI checks and the doc-free batch ops on the card
+   (``gate_path``):
+   - the fixture's first 128 traces (cut from 256 for time), each cut
+     into eight updates (by eight spawned workers, which also compute
+     the CPU results), go through ``merge_updates_columnar``, then
+     ``encode_state_vector_from_update_columnar`` of the first update and
+     ``diff_update_columnar`` of the merge against that state vector,
+     under ``YTPU_NO_NATIVE_PLAN=1`` with ``device="cuda"`` (the Python
+     mirror's per-doc plan, ``conflict_scan`` on the card; a fresh
+     mirror's anchors all lie in its own batch, so the anchor lookup has
+     nothing to search); every result equals the same call's with
+     ``device="cpu"`` byte for byte, and that one the CPU core's
+     ``merge_updates`` / ``diff_update`` in canonical form and its state
+     vector as a map; timed alone, as docs a second;
+   - ``scripts/torch_check_trace.py``'s ``selftest()`` and
+     ``scripts/torch_check_metrics_schema.py``'s ``main([])`` in this
+     process with their defaults (the card, backend ``auto``): each
+     returns 0, and the selftest's fleet launches ``apply_lanes``;
+   - ``scripts/torch_ytpu_cluster.py --shards 2 --smoke`` as a child
+     with no ``--backend`` and no ``--device``: it exits 0 with its
+     ``smoke: OK`` line, its shards on the card, and its shards'
+     ``launches`` RPC shows ``apply_lanes`` launched;
+15. kernels: each kernel against its plain version on the card at its
    path's largest shapes (exact), with times from CUDA events (``ms``:
    per call, launch gaps included; the YATA steps restore their tables
    before each timed launch and time it alone), device time from
@@ -277,10 +303,10 @@ script exits non-zero:
    one kernel), ``ms_obs_off``, ``host_us``, ``graph_ms`` (50 calls
    replayed from a CUDA graph), ``lanes_a_thread`` and ``tiles``;
    every row adds ``launches_fleet``, ``launches_geo``,
-   ``launches_capacity``, ``launches_cluster`` and ``launches_session``,
-   its launches on the five service paths (the cluster's in its shard
-   children);
-15. the last line: ``{"ok": true, "device": {...}}``.
+   ``launches_capacity``, ``launches_cluster``, ``launches_session`` and
+   ``launches_gate``, its launches on the five service paths and the
+   gate (the cluster's and the gate launcher's in their shard children);
+16. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1211,6 +1237,9 @@ def _burst_job(job):
     return interleaved_burst(held, seed)
 
 
+TWIN_THREADS = 4  # a CPU twin's kernels, beside the card's thread
+
+
 def worker_pool(n_jobs: int):
     """Spawned worker processes, one a core (at most 8)."""
     import multiprocessing
@@ -1325,6 +1354,35 @@ def log_planner_flush(name: str, f: dict, smi: str) -> None:
         f"overlaps counted once; idle {f['idle']:.6f} of the wall")
 
 
+class PlannerTwin:
+    """The planner path's CPU twin, ``BatchEngine(n_docs, device="cpu")``
+    on Python mirrors, for a :class:`Twin` process of its own: each
+    flush plans cold on the plain kernels (its process's plan cache never
+    holds the card's plans) beside the card engine's."""
+
+    def __init__(self, n_docs: int):
+        os.environ["YTPU_NO_NATIVE_PLAN"] = "1"
+        os.environ.pop("YTPU_PLAN_SEGMENT", None)
+        from yjs_tpu_torch.ops import BatchEngine
+
+        self.eng = BatchEngine(n_docs, device="cpu")
+
+    def flush(self, ups: dict) -> tuple:
+        """Queues ``ups`` (doc -> updates) and flushes; returns the
+        flush's seconds, its plan-cache hits and misses, and the three
+        tables."""
+        for i, us in ups.items():
+            for u in us:
+                self.eng.queue_update(i, u)
+        t0 = time.perf_counter()
+        self.eng.flush()
+        dt = time.perf_counter() - t0
+        tm = self.eng.last_flush_metrics
+        return (dt, tm["plan_cache_hits"], tm["plan_cache_misses"],
+                {name: getattr(self.eng, name)
+                 for name in ("_right", "_deleted", "_starts")})
+
+
 def planner_path(traces: list[bytes], main_trimmed: list, smi: str,
                  device: str = "cuda", n_docs: int = N_PLANNER_DOCS) -> dict:
     """The Python mirror's cold planner (``YTPU_NO_NATIVE_PLAN=1``,
@@ -1333,9 +1391,13 @@ def planner_path(traces: list[bytes], main_trimmed: list, smi: str,
     one distinct trace a doc (one chunk conflict scan over every doc),
     flush 2 gives every doc a seeded interleaved burst (a chunk scan and
     one chunk anchor lookup), flush 3 a second burst to doc 0 alone (the
-    per-doc scan and lookup).  The plan cache is emptied before each
-    engine's flush, so the twin plans every doc on the plain kernels.
-    Returns the flushes' splits."""
+    per-doc scan and lookup).  The twin (:class:`PlannerTwin`) runs in a
+    spawned process of its own, each flush beside the card's, and plans
+    every doc on the plain kernels; the plan cache is emptied before each
+    of the card's flushes, so it plans cold too.  Returns the flushes'
+    splits."""
+    from types import SimpleNamespace
+
     import yjs_tpu_torch as Y
     from yjs_tpu_torch.ops import BatchEngine, plan_cache
     from yjs_tpu_torch.ops.columns import DocMirror
@@ -1344,12 +1406,14 @@ def planner_path(traces: list[bytes], main_trimmed: list, smi: str,
     saved = {k: os.environ.get(k)
              for k in ("YTPU_NO_NATIVE_PLAN", "YTPU_PLAN_SEGMENT")}
     out = {"n_docs": n_docs}
+    twin = None
     try:
         os.environ["YTPU_NO_NATIVE_PLAN"] = "1"
         os.environ.pop("YTPU_PLAN_SEGMENT", None)
         plan_cache.reset_cache()
         eng = BatchEngine(n_docs, device=device)
-        twin = BatchEngine(n_docs, device="cpu")
+        twin = Twin(PlannerTwin, n_docs)
+        twin.result()  # built
         check(all(type(m) is DocMirror for m in eng.mirrors),
               "the planner path does not run on Python mirrors")
         pool = worker_pool(n_docs)
@@ -1359,7 +1423,7 @@ def planner_path(traces: list[bytes], main_trimmed: list, smi: str,
         def updates_of(k):
             # the bursts are set-up: their worker processes build them
             # while the twin plans flush 1 (the card's timed flushes run
-            # with no workers beside them)
+            # with no workers beside them, only the twin's process)
             nonlocal bursts, extra
             if k == 1:
                 return {i: [traces[i]] for i in range(n_docs)}
@@ -1375,30 +1439,25 @@ def planner_path(traces: list[bytes], main_trimmed: list, smi: str,
         with pool, PlannerTimer() as timer:
             for k, name in enumerate(("flush 1", "flush 2", "flush 3"), 1):
                 ups = updates_of(k)
-                for e in (eng, twin):
-                    for i, us in ups.items():
-                        for u in us:
-                            e.queue_update(i, u)
-                # each engine plans cold: the process-global plan cache is
-                # emptied before each flush, so the twin runs the plain
-                # planner kernels itself instead of replaying the card's
+                for i, us in ups.items():
+                    for u in us:
+                        eng.queue_update(i, u)
+                twin.start("flush", ups)
+                # the card plans cold: the plan cache is emptied before
+                # its flush (the twin's process has a cache of its own)
                 plan_cache.reset_cache()
                 out[f"flush{k}"] = f = planner_flush(eng, timer)
                 plan_cache.reset_cache()
                 if k == 1:
                     pending = make_bursts(
                         [[traces[i]] for i in range(n_docs)], 500, pool)
-                t0 = time.perf_counter()
-                twin.flush()
-                out[f"twin{k}"] = time.perf_counter() - t0
-                tm = twin.last_flush_metrics
-                check(tm["plan_cache_hits"] == 0
-                      and tm["plan_cache_misses"] == f["cold"],
-                      f"planner {name}: the twin replayed {tm['plan_cache_hits']}"
-                      f" plans and planned {tm['plan_cache_misses']} cold, "
-                      f"the card {f['cold']}")
+                out[f"twin{k}"], hits, misses, tables = twin.result()
+                check(hits == 0 and misses == f["cold"],
+                      f"planner {name}: the twin replayed {hits} plans and "
+                      f"planned {misses} cold, the card {f['cold']}")
                 log_planner_flush(name, f, smi)
-                assert_twins(eng, twin, f"planner {name}", "planner")
+                assert_twins(eng, SimpleNamespace(**tables),
+                             f"planner {name}", "planner")
                 if k == 1:
                     assert_trimmed(eng, main_trimmed[0][:n_docs],
                                    "planner flush 1 against the main path's "
@@ -1421,9 +1480,11 @@ def planner_path(traces: list[bytes], main_trimmed: list, smi: str,
         log(f"[planner] {len(sample)} sampled docs: texts and encoded states "
             "equal the CPU Doc")
         out["burst_updates"] = sum(len(b) for b in bursts)
-        del eng, twin
+        del eng
         plan_cache.reset_cache()
     finally:
+        if twin is not None:
+            twin.stop()
         for k, v in saved.items():
             restore_env(k, v)
     return out
@@ -2115,11 +2176,7 @@ def mesh_rows(mfig: dict, m_launches: dict, plseen: dict) -> list[dict]:
     err = max(err, max_abs_err(got2, ref))
     a_call = {}
     for key, call in (("1-D", lambda: fn(bs, be)), ("2x2", lambda: fn2(bs2, be2))):
-        before = dict(K.launches)
-        call()
-        torch.cuda.synchronize()
-        a_call[key] = {k: v - before.get(k, 0) for k, v in K.launches.items()
-                       if v != before.get(k, 0)}
+        a_call[key] = launches_a_call(K, call)
         check(a_call[key] == {"sharded_state_vectors": 1},
               f"K16 on the {key} mesh launched {a_call[key]} in one call on "
               "one card, not one launch and no fold")
@@ -2226,44 +2283,153 @@ N_GEO_ROOMS = 1024
 N_GEO_TICKS = 400
 
 
-def fleet_twins(fleet, twin, rooms: list[str], what: str) -> None:
-    """``fleet`` equals its CPU twin: the same live shards and routing
-    epoch, every shard's rooms in the same slots with the same trimmed
-    tables, every room's owner, and every room's encoded state."""
+def fleet_fingerprint(fleet, rooms: list[str]) -> dict:
+    """What :func:`fleet_twins` compares of a fleet: its shards, live
+    shards and routing epoch, each live shard's rooms and slots with a
+    digest of each doc's trimmed tables, every room's owner and a digest
+    of every room's encoded state."""
+    from hashlib import blake2b
+
     from yjs_tpu_torch.ops.carry import trim_tables
 
-    t0 = time.perf_counter()
-    check(len(fleet.shards) == len(twin.shards),
-          f"{what}: {len(fleet.shards)} shards, the twin {len(twin.shards)}")
-    check(fleet.live_shards == twin.live_shards,
-          f"{what}: live shards {fleet.live_shards} vs {twin.live_shards}")
-    check(fleet.table.epoch == twin.table.epoch,
-          f"{what}: routing epoch {fleet.table.epoch} vs {twin.table.epoch}")
-    for k, (a, b) in enumerate(zip(fleet.shards, twin.shards)):
-        check(fleet._is_stub(k) == twin._is_stub(k),
-              f"{what}: shard {k} is dead on one side only")
+    def digest(parts) -> bytes:
+        h = blake2b(digest_size=16)
+        for x in parts:
+            if x is None:
+                h.update(b"-")
+            else:
+                x = np.ascontiguousarray(x)
+                h.update(f"{x.dtype}{x.shape}".encode())
+                h.update(x.tobytes())
+        return h.digest()
+
+    shards = []
+    for k, p in enumerate(fleet.shards):
         if fleet._is_stub(k):
+            shards.append(None)
             continue
-        check(a._guids == b._guids,
+        shards.append((dict(p._guids), [
+            None if t is None else digest(t) for t in trim_tables(p.engine)]))
+    return {
+        "n_shards": len(fleet.shards), "live": list(fleet.live_shards),
+        "epoch": fleet.table.epoch, "shards": shards,
+        "owners": [fleet.owner_of(g) for g in rooms],
+        "states": [blake2b(fleet.encode_state_as_update(g),
+                           digest_size=16).digest() for g in rooms],
+    }
+
+
+def fleet_twins(fleet, twin_fp: dict, rooms: list[str], what: str) -> None:
+    """``fleet`` equals its CPU twin (``twin_fp``, the twin's
+    :func:`fleet_fingerprint`): the same live shards and routing epoch,
+    every shard's rooms in the same slots with the same trimmed tables,
+    every room's owner, and every room's encoded state."""
+    t0 = time.perf_counter()
+    fp = fleet_fingerprint(fleet, rooms)
+    check(fp["n_shards"] == twin_fp["n_shards"],
+          f"{what}: {fp['n_shards']} shards, the twin {twin_fp['n_shards']}")
+    check(fp["live"] == twin_fp["live"],
+          f"{what}: live shards {fp['live']} vs {twin_fp['live']}")
+    check(fp["epoch"] == twin_fp["epoch"],
+          f"{what}: routing epoch {fp['epoch']} vs {twin_fp['epoch']}")
+    for k, (a, b) in enumerate(zip(fp["shards"], twin_fp["shards"])):
+        check((a is None) == (b is None),
+              f"{what}: shard {k} is dead on one side only")
+        if a is None:
+            continue
+        check(a[0] == b[0],
               f"{what}: shard {k} holds other rooms or slots than the twin's")
-        for i, (x, y) in enumerate(zip(trim_tables(a.engine),
-                                       trim_tables(b.engine))):
-            same = (x is None and y is None) or (
-                x is not None and y is not None
-                and all(np.array_equal(u, v) for u, v in zip(x, y))
-            )
-            check(same, f"{what}: shard {k} doc {i}: trimmed tables differ "
+        for i, (x, y) in enumerate(zip(a[1], b[1])):
+            check(x == y, f"{what}: shard {k} doc {i}: trimmed tables differ "
                   "from the CPU twin's")
-    owners = [fleet.owner_of(g) for g in rooms]
-    check(owners == [twin.owner_of(g) for g in rooms],
+    check(fp["owners"] == twin_fp["owners"],
           f"{what}: room placements differ from the twin's")
-    bad = sum(fleet.encode_state_as_update(g) != twin.encode_state_as_update(g)
-              for g in rooms)
+    bad = sum(x != y for x, y in zip(fp["states"], twin_fp["states"]))
     check(bad == 0, f"{what}: {bad} rooms' encoded states differ from the twin's")
-    log(f"[fleet] {what}: {len(fleet.live_shards)} live shards, epoch "
-        f"{fleet.table.epoch}; tables, placements and {len(rooms)} rooms' "
+    log(f"[fleet] {what}: {len(fp['live'])} live shards, epoch "
+        f"{fp['epoch']}; tables, placements and {len(rooms)} rooms' "
         f"states equal the CPU twin's (checked in "
         f"{time.perf_counter() - t0:.1f}s)")
+
+
+class FleetTwin:
+    """The fleet path's CPU twin, ``FleetRouter(..., device="cpu")``, for
+    a :class:`Twin` process of its own: each step runs beside the card
+    fleet's and answers its seconds, its report and the twin's
+    :func:`fleet_fingerprint`."""
+
+    def __init__(self, n_shards: int, n_docs: int, wal_dir: str,
+                 rooms: list[str]):
+        from yjs_tpu_torch.fleet import FleetRouter
+
+        self.rooms = rooms
+        self.fleet = FleetRouter(n_shards, n_docs, wal_dir=wal_dir,
+                                 device="cpu")
+
+    def _step(self, fn) -> tuple:
+        # host seconds: this process never touches the card
+        t0 = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t0
+        return dt, out, fleet_fingerprint(self.fleet, self.rooms)
+
+    def ingest_flush(self, held: list[bytes]) -> tuple:
+        f = self.fleet
+        t0 = time.perf_counter()
+        for g, u in zip(self.rooms, held):
+            f.receive_update(g, u)
+        return (time.perf_counter() - t0,) + self._step(f.flush)
+
+    def migrate(self, moved: list[str], n: int) -> tuple:
+        return self._step(lambda: fleet_migrate(self.fleet, moved, n))
+
+    def drain(self, k: int) -> tuple:
+        return self._step(lambda: fleet_flushed(self.fleet,
+                                                self.fleet.drain_shard(k)))
+
+    def tick(self) -> tuple:
+        return self._step(lambda: fleet_flushed(self.fleet, self.fleet.tick()))
+
+    def fail_over(self, victim: int) -> tuple:
+        self.fleet.kill_shard(victim)
+        return self._step(lambda: fleet_flushed(self.fleet,
+                                                self.fleet.fail_over(victim)))
+
+    def revive(self, victim: int) -> tuple:
+        return self._step(lambda: fleet_flushed(
+            self.fleet, self.fleet.revive_shard(victim)))
+
+    def checkpoint_close(self) -> None:
+        self.fleet.checkpoint()
+        self.fleet.close(checkpoint=False)
+        self.fleet = None
+
+    def recover(self, wal_dir: str) -> tuple:
+        from yjs_tpu_torch.fleet import FleetRouter
+
+        def rec():
+            self.fleet = FleetRouter.recover(wal_dir, device="cpu")
+
+        return self._step(rec)
+
+    def close(self) -> None:
+        if self.fleet is not None:
+            self.fleet.close(checkpoint=False)
+
+
+def fleet_flushed(fleet, result):
+    """``result``, after a flush of ``fleet``."""
+    fleet.flush()
+    return result
+
+
+def fleet_migrate(fleet, moved: list[str], n: int) -> None:
+    """Each room of ``moved`` to the next shard round the ring, then a
+    flush."""
+    for j, g in enumerate(moved):
+        src = fleet.owner_of(g)
+        fleet.migrate_doc(g, (src + 1 + j % (n - 1)) % n)
+    fleet.flush()
 
 
 def fleet_oracle(fleet, rooms: list[str], held: list[bytes],
@@ -2288,7 +2454,9 @@ def fleet_path(traces: list[bytes], smi: str, device: str = "cuda") -> dict:
     """``FleetRouter(8, 1024)`` on the card beside a CPU twin fleet fed the
     same bytes: one flush of 4096 rooms, 64 live migrations, a drain and a
     rebalancer tick, a kill with its failover and a revive, then a
-    checkpoint, a close and a recovery; the two fleets equal after each."""
+    checkpoint, a close and a recovery; the two fleets equal after each.
+    The twin (:class:`FleetTwin`) runs in a spawned process of its own,
+    each step beside the card's."""
     import gc
 
     from yjs_tpu_torch.fleet import FleetRouter
@@ -2301,23 +2469,27 @@ def fleet_path(traces: list[bytes], smi: str, device: str = "cuda") -> dict:
     fig = {}
     # exports read the host mirror here: the tables are compared whole
     saved = os.environ.pop("YTPU_EXPORT_DEVICE", None)
+    twin = None
     try:
         with tempfile.TemporaryDirectory() as card_dir, \
                 tempfile.TemporaryDirectory() as twin_dir:
+            # the twin fleet runs in a process of its own, each step beside
+            # the card fleet's, and answers with its fingerprint
+            twin = Twin(FleetTwin, N_FLEET_SHARDS, N_FLEET_DOCS, twin_dir,
+                        rooms)
             card = FleetRouter(N_FLEET_SHARDS, N_FLEET_DOCS,
                                wal_dir=card_dir, device=device)
-            twin = FleetRouter(N_FLEET_SHARDS, N_FLEET_DOCS,
-                               wal_dir=twin_dir, device="cpu")
             check(all(p.engine.device == card_dev for p in card.shards),
                   "a shard's engine is not on the card")
-            for f, key in ((card, "ingest"), (twin, "ingest_twin")):
-                _, fig[key] = timed(lambda: [
-                    f.receive_update(g, u) for g, u in zip(rooms, held)])
+            twin.result()  # built
+            twin.start("ingest_flush", held)
+            _, fig["ingest"] = timed(lambda: [
+                card.receive_update(g, u) for g, u in zip(rooms, held)])
             pending = [k for k in card.live_shards if card.shards[k]._dirty]
             before = K.launches["apply_lanes"]
             _, fig["flush"] = timed(card.flush)
             fig["flush_k1"] = K.launches["apply_lanes"] - before
-            _, fig["flush_twin"] = timed(twin.flush)
+            fig["ingest_twin"], fig["flush_twin"], _, tfp = twin.result()
             # (a CPU run counts no launches: the plain versions serve)
             check(device != "cuda" or fig["flush_k1"] >= len(pending),
                   f"the fleet flush launched apply_lanes {fig['flush_k1']} "
@@ -2327,50 +2499,42 @@ def fleet_path(traces: list[bytes], smi: str, device: str = "cuda") -> dict:
                                   for g in rooms)
             fig["per_shard"] = [len(card.shards[k].guids())
                                 for k in card.live_shards]
-            fleet_twins(card, twin, rooms, "flush")
+            fleet_twins(card, tfp, rooms, "flush")
 
             # live migrations: each room to the next shard round the ring
             gen = random.Random(3)
             moved = gen.sample(rooms, N_FLEET_MOVED)
             n = N_FLEET_SHARDS
-
-            def migrate(f):
-                for j, g in enumerate(moved):
-                    src = f.owner_of(g)
-                    f.migrate_doc(g, (src + 1 + j % (n - 1)) % n)
-                f.flush()
-
-            _, fig["migrate"] = timed(lambda: migrate(card))
-            migrate(twin)
-            fleet_twins(card, twin, rooms, f"{N_FLEET_MOVED} migrations")
+            twin.start("migrate", moved, n)
+            _, fig["migrate"] = timed(lambda: fleet_migrate(card, moved, n))
+            tfp = twin.result()[2]
+            fleet_twins(card, tfp, rooms, f"{N_FLEET_MOVED} migrations")
             drained = card.owner_of(moved[0])
+            twin.start("drain", drained)
             (fig["drained"], fig["drain"]) = timed(
                 lambda: card.drain_shard(drained))
-            twin.drain_shard(drained)
             card.flush()
-            twin.flush()
-            fleet_twins(card, twin, rooms, f"drain of shard {drained}")
+            _, tdrained, tfp = twin.result()
+            check(tdrained == fig["drained"], "the drain moved otherwise "
+                  "than the twin's")
+            fleet_twins(card, tfp, rooms, f"drain of shard {drained}")
+            twin.start("tick")
             fig["decisions"] = card.tick()
-            check(fig["decisions"] == twin.tick(),
-                  "the rebalancer decided otherwise than the twin's")
             card.flush()
-            twin.flush()
-            fleet_twins(card, twin, rooms, "rebalancer tick")
+            _, tdecisions, tfp = twin.result()
+            check(fig["decisions"] == tdecisions,
+                  "the rebalancer decided otherwise than the twin's")
+            fleet_twins(card, tfp, rooms, "rebalancer tick")
 
             # a shard's machine dies; its replicas are promoted
             victim = card.owner_of(rooms[1])
             fig["mem_before_kill"] = mem()
             owned = [g for g in rooms if card.owner_of(g) == victim]
+            twin.start("fail_over", victim)
             card.kill_shard(victim)
-            twin.kill_shard(victim)
-
-            def fail_over(f):
-                res = f.fail_over(victim)
-                f.flush()
-                return res
-
-            res, fig["failover"] = timed(lambda: fail_over(card))
-            tres, fig["failover_twin"] = timed(lambda: fail_over(twin))
+            res, fig["failover"] = timed(
+                lambda: fleet_flushed(card, card.fail_over(victim)))
+            fig["failover_twin"], tres, tfp = twin.result()
             check(res == tres, "failover reports differ")
             # a room moved since its replica was seeded (as the drain
             # moved many onto this shard) may have none: failover declares
@@ -2383,9 +2547,9 @@ def fleet_path(traces: list[bytes], smi: str, device: str = "cuda") -> dict:
             fig["promoted"] = len(res["promoted"])
             fig["lost"] = len(res["lost"])
             fig["mem_after_failover"] = mem()
-            fleet_twins(card, twin, rooms, f"failover of shard {victim}")
+            fleet_twins(card, tfp, rooms, f"failover of shard {victim}")
+            twin.start("revive", victim)
             rev = card.revive_shard(victim)
-            check(rev == twin.revive_shard(victim), "revive reports differ")
             check(card.shards[victim].engine.device == card_dev,
                   f"the revived shard's engine is on "
                   f"{card.shards[victim].engine.device}")
@@ -2393,8 +2557,9 @@ def fleet_path(traces: list[bytes], smi: str, device: str = "cuda") -> dict:
             fig["fenced"] = len(rev["fenced"])
             fig["readopted"] = len(rev["readopted"])
             card.flush()
-            twin.flush()
-            fleet_twins(card, twin, rooms, f"revive of shard {victim}")
+            _, trev, tfp = twin.result()
+            check(rev == trev, "revive reports differ")
+            fleet_twins(card, tfp, rooms, f"revive of shard {victim}")
             lost_rooms = sorted(set(owned) - set(res["promoted"]))
             sample = sorted(set(lost_rooms[:N_FLEET_SAMPLED // 2])
                             | set(gen.sample(rooms, N_FLEET_SAMPLED // 2)))
@@ -2402,26 +2567,29 @@ def fleet_path(traces: list[bytes], smi: str, device: str = "cuda") -> dict:
             fleet_oracle(card, rooms, held, sample, "after the revive", oracle)
 
             # checkpoint, close, recover on the card
-            for f in (card, twin):
-                f.checkpoint()
-                f.close(checkpoint=False)
-            del card, twin
+            twin.start("checkpoint_close")
+            card.checkpoint()
+            card.close(checkpoint=False)
+            del card
             gc.collect()
+            twin.result()
+            twin.start("recover", twin_dir)
             rec, fig["recover"] = timed(
                 lambda: FleetRouter.recover(card_dir, device=device))
-            trec, fig["recover_twin"] = timed(
-                lambda: FleetRouter.recover(twin_dir, device="cpu"))
+            fig["recover_twin"], _, tfp = twin.result()
             check(all(rec._is_stub(k) or p.engine.device == card_dev
                       for k, p in enumerate(rec.shards)),
                   "a recovered shard's engine is not on the card")
-            fleet_twins(rec, trec, rooms, "recovery")
+            fleet_twins(rec, tfp, rooms, "recovery")
             fleet_oracle(rec, rooms, held, sample, "after the recovery", oracle)
             fig["resolution"] = rec.last_recovery["resolution"]
             rec.close(checkpoint=False)
-            trec.close(checkpoint=False)
-            del rec, trec
+            twin.call("close")
+            del rec
             gc.collect()
     finally:
+        if twin is not None:
+            twin.stop()
         restore_env("YTPU_EXPORT_DEVICE", saved)
     rate = fig["elements"] / fig["flush"]
     log(f"[fleet] {N_FLEET_SHARDS} shards x {N_FLEET_DOCS} slots, "
@@ -2443,7 +2611,8 @@ def fleet_path(traces: list[bytes], smi: str, device: str = "cuda") -> dict:
     log(f"[fleet] host s: ingest {fig['ingest']:.3f} (twin "
         f"{fig['ingest_twin']:.3f}); the twin's flush {fig['flush_twin']:.3f}, "
         f"failover {fig['failover_twin']:.3f}, recovery "
-        f"{fig['recover_twin']:.3f} ({smi})")
+        f"{fig['recover_twin']:.3f}, each in its own process beside the "
+        f"card's step ({smi})")
     log(f"[fleet] torch.cuda.memory_allocated: before the kill "
         f"{fig['mem_before_kill']}, after the failover "
         f"{fig['mem_after_failover']}, after the revive "
@@ -2613,13 +2782,14 @@ N_STREAM_BEFORE_KILL = 10
 CLUSTER_WAIT_S = 120.0
 
 
-def _load_launcher():
-    """``scripts/torch_ytpu_cluster.py`` as a module: its session and
-    y-websocket clients drive the gateway."""
+def _load_script(name: str):
+    """``scripts/<name>.py`` as a module (the cluster launcher's session
+    and y-websocket clients drive the gateway; the gate phase calls the
+    CI checks)."""
     import importlib.util
 
-    path = ROOT / "scripts" / "torch_ytpu_cluster.py"
-    spec = importlib.util.spec_from_file_location("torch_ytpu_cluster", path)
+    path = ROOT / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2944,7 +3114,7 @@ def _cluster_path(traces, smi, device, n_docs, n_rooms) -> dict:
         ClusterConfig, Gateway, GatewayConfig, RpcError,
     )
 
-    launcher = _load_launcher()
+    launcher = _load_script("torch_ytpu_cluster")
     Sup = _smoke_supervisor()
     cfg = ClusterConfig(heartbeat_s=0.15, restart_max=1,
                         restart_backoff_s=0.05, spawn_timeout_s=600.0)
@@ -3271,12 +3441,12 @@ TCP_WAIT_S = 120.0
 CHILD_WAIT_S = 300.0
 
 
-def _trace_pieces(trace: bytes) -> list[bytes]:
-    """``trace`` as ``N_SESSION_ROUNDS`` incremental updates whose merge
-    is the trace: each client's structs cut at a quarter, a half and
-    three quarters of its clock (prefixes rebuilt from snapshots that
-    delete nothing), the last piece carrying the rest and the whole
-    delete set."""
+def _trace_pieces(trace: bytes, n: int = N_SESSION_ROUNDS) -> list[bytes]:
+    """``trace`` as ``n`` incremental updates whose merge is the trace:
+    each client's structs cut at every ``n``-th of its clock (a quarter,
+    a half and three quarters for the session's four; prefixes rebuilt
+    from snapshots that delete nothing), the last piece carrying the
+    rest and the whole delete set."""
     import yjs_tpu_torch as Y
     from yjs_tpu_torch.core import DeleteSet
     from yjs_tpu_torch.utils.snapshot import (
@@ -3286,7 +3456,6 @@ def _trace_pieces(trace: bytes) -> list[bytes]:
     doc = Y.Doc(gc=False)
     Y.apply_update(doc, trace)
     full = Y.decode_state_vector(Y.encode_state_vector(doc))
-    n = N_SESSION_ROUNDS
     prefixes = []
     for k in range(1, n):
         cut = {c: clock * k // n for c, clock in full.items()}
@@ -3525,45 +3694,41 @@ class SessionPair:
         return out
 
 
-TWIN_THREADS = 4  # the twin's CPU kernels, beside the card pair's thread
-
-
-def _twin_main(conn, rooms: list[str], root: str) -> None:
-    """The CPU twin pair's process: builds a ``SessionPair`` on the CPU,
-    then runs each ``(method, args)`` that arrives until ``close``; each
-    step, the build included, answers ``(True, result)`` or ``(False,
-    traceback)``."""
+def _twin_main(conn, factory, args: tuple) -> None:
+    """A CPU twin's process: builds ``factory(*args)``, then runs each
+    ``(method, args)`` that arrives until ``close``; each step, the build
+    included, answers ``(True, result)`` or ``(False, traceback)``."""
     import traceback
 
     torch.set_num_threads(TWIN_THREADS)
-    pair, op = None, None
+    twin, op = None, None
     while op != "close":
         try:
-            if pair is None:
-                pair = SessionPair(rooms, "cpu", Path(root))
+            if twin is None:
+                twin = factory(*args)
                 out = None
             else:
-                op, args = conn.recv()
-                out = getattr(pair, op)(*args)
+                op, op_args = conn.recv()
+                out = getattr(twin, op)(*op_args)
             conn.send((True, out))
         except BaseException:
             conn.send((False, traceback.format_exc()))
             return
 
 
-class TwinPair:
-    """The CPU twin ``SessionPair`` in a spawned process of its own:
-    :meth:`start` sends it a step, which runs beside the card pair's,
-    and :meth:`result` waits for that step's answer (the first answer is
+class Twin:
+    """A CPU twin, ``factory(*args)``, in a spawned process of its own:
+    :meth:`start` sends it a step, which runs beside the card's, and
+    :meth:`result` waits for that step's answer (the first answer is
     the build's)."""
 
-    def __init__(self, rooms: list[str], root: Path):
+    def __init__(self, factory, *args):
         import multiprocessing
 
         ctx = multiprocessing.get_context("spawn")
         self.conn, child = ctx.Pipe()
         self.proc = ctx.Process(target=_twin_main,
-                                args=(child, rooms, str(root)), daemon=True)
+                                args=(child, factory, args), daemon=True)
         self.proc.start()
         child.close()
 
@@ -3805,7 +3970,7 @@ def session_path(traces: list[bytes], smi: str, device: str = "cuda",
                                       chunksize=8)
         oracle_async = pool.map_async(
             _trace_oracle, [[t] for t in traces[:n_traces]], chunksize=8)
-        twin = TwinPair(rooms, root / "twin")
+        twin = Twin(SessionPair, rooms, "cpu", root / "twin")
         card = SessionPair(rooms, device, root / "card")
         dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
         check(card.a.engine.device == dev and card.b.engine.device == dev,
@@ -4005,6 +4170,180 @@ def session_path(traces: list[bytes], smi: str, device: str = "cuda",
         shutil.rmtree(root, ignore_errors=True)
     return fig
 
+
+N_GATE_DOCS = 128  # the fixture's first traces, one doc each; cut from 256 for time
+N_GATE_PIECES = 8  # each trace cut into eight updates
+GATE_WAIT_S = 300.0
+GATE_LAUNCHER = ["scripts/torch_ytpu_cluster.py", "--shards", "2", "--smoke"]
+
+
+def _batch_ops(pieces: list[bytes], device: str) -> tuple:
+    """The doc-free batch ops on one doc's updates: their merge, the
+    first update's state vector and the merge's diff against it."""
+    from yjs_tpu_torch.ops import batch
+
+    merged = batch.merge_updates_columnar(pieces, device=device)
+    sv = batch.encode_state_vector_from_update_columnar(pieces[0],
+                                                        device=device)
+    return merged, sv, batch.diff_update_columnar(merged, sv, device=device)
+
+
+def _gate_job(trace: bytes) -> tuple:
+    """In a worker: ``trace`` cut into ``N_GATE_PIECES`` updates, the
+    batch ops on the Python mirror with ``device="cpu"`` (the planner's
+    plain kernels), and which of their results disagree with the CPU
+    core's ``merge_updates`` / ``encode_state_vector_from_update`` /
+    ``diff_update``.  The core merges adjacent runs and the columnar ops
+    keep each update's, so merge and diff are compared in canonical form
+    (``merge_updates([x])``), state vectors as maps."""
+    os.environ["YTPU_NO_NATIVE_PLAN"] = "1"
+    import yjs_tpu_torch as Y
+
+    pieces = _trace_pieces(trace, N_GATE_PIECES)
+    merged, sv, diff = _batch_ops(pieces, "cpu")
+    o_merged = Y.merge_updates(pieces)
+    o_sv = Y.encode_state_vector_from_update(pieces[0])
+    wrong = []
+    if Y.merge_updates([merged]) != o_merged:
+        wrong.append("merge")
+    if Y.decode_state_vector(sv) != Y.decode_state_vector(o_sv):
+        wrong.append("state vector")
+    if Y.merge_updates([diff]) != Y.merge_updates(
+            [Y.diff_update(o_merged, o_sv)]):
+        wrong.append("diff")
+    return pieces, (merged, sv, diff), wrong
+
+
+def _delta(K, before: dict) -> dict:
+    """The wrappers' launch counts that grew since ``before``."""
+    return {k: v - before.get(k, 0) for k, v in K.launches.items()
+            if v != before.get(k, 0)}
+
+
+def gate_path(traces: list[bytes], smi: str, device: str = "cuda",
+              n_docs: int = N_GATE_DOCS) -> dict:
+    """The port's CI checks and the doc-free batch ops on ``device``:
+
+    - (a) ``merge_updates_columnar`` of each of ``n_docs`` traces cut
+      into ``N_GATE_PIECES`` updates, ``encode_state_vector_from_update_
+      columnar`` of its first update and ``diff_update_columnar`` of the
+      merge against that state vector, under ``YTPU_NO_NATIVE_PLAN=1``
+      (the Python mirror plans on the segment planner's kernels), held
+      byte for byte to the same calls with ``device="cpu"`` and, through
+      them, to the CPU core's results (spawned workers cut the traces and
+      compute both);
+    - (b) ``scripts/torch_check_trace.py``'s ``selftest()`` with its
+      defaults (a 3-shard port fleet on the card, backend ``auto``);
+    - (c) ``scripts/torch_check_metrics_schema.py``'s ``main([])``;
+    - (d) ``scripts/torch_ytpu_cluster.py --shards 2 --smoke`` as a child
+      with no ``--backend`` and no ``--device``: exit 0, ``smoke: OK``,
+      and its shards' launch counts (the ``launches`` RPC).
+
+    (b), (c) and (d) run beside the workers; (a)'s calls on the card are
+    timed alone after them.  Returns the figures, with ``launches_child``
+    the launcher's shards' counts."""
+    import shutil
+
+    from yjs_tpu_torch.ops import kernels as K
+
+    cpu = device == "cpu"
+    fig: dict = {}
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="ytpu-gate-"))
+    argv = GATE_LAUNCHER + ["--wal-root", str(root / "wal")]
+    if cpu:
+        argv += ["--device", "cpu"]
+    runs = {"torch_ytpu_cluster --shards 2 --smoke": (argv, ("smoke: OK",))}
+    children = _start_children(runs)
+    pool = worker_pool(n_docs)
+    saved = os.environ.get("YTPU_NO_NATIVE_PLAN")
+    try:
+        jobs = pool.map_async(_gate_job, traces[:n_docs], chunksize=4)
+
+        # (b) the trace selftest in-process, rooms on the engine
+        trace_check = _load_script("torch_check_trace")
+        before = dict(K.launches)
+        t0 = time.perf_counter()
+        rc = trace_check.selftest(device="cpu" if cpu else None)
+        fig["t_trace"] = time.perf_counter() - t0
+        fig["trace_launches"] = _delta(K, before)
+        check(rc == 0, f"torch_check_trace selftest exited {rc}")
+        check(cpu or fig["trace_launches"].get("apply_lanes", 0) > 0,
+              "the trace selftest's fleet never launched apply_lanes")
+
+        # (c) the metrics-schema check with its defaults
+        schema = _load_script("torch_check_metrics_schema")
+        t0 = time.perf_counter()
+        rc = schema.main(["--device", "cpu"] if cpu else [])
+        fig["t_schema"] = time.perf_counter() - t0
+        check(rc == 0, f"torch_check_metrics_schema exited {rc}")
+
+        # the workers' cuts and CPU results, then (d)'s child
+        t0 = time.perf_counter()
+        jobs.wait(GATE_WAIT_S)
+        check(jobs.ready(), f"the gate's workers took over {GATE_WAIT_S}s")
+        done = jobs.get()
+        fig["t_workers_wait"] = time.perf_counter() - t0
+        wrong = [(i, w) for i, (_p, _r, w) in enumerate(done) if w]
+        check(not wrong, "batch ops on the CPU disagree with the CPU core: "
+              f"{wrong[:8]}")
+        walls = _finish_children(runs, children)
+        child = next(iter(children.values()))
+        fig["t_launcher"] = next(iter(walls.values()))
+        ok = next(ln for ln in child.out.splitlines()
+                  if ln.startswith("smoke: OK"))
+        fig["launcher_ok"] = ok
+        got = next(ln for ln in child.out.splitlines()
+                   if ln.startswith("smoke: launches "))
+        fig["launches_child"] = json.loads(got[len("smoke: launches "):])
+        check(cpu or fig["launches_child"].get("apply_lanes", 0) > 0,
+              "the launcher's shards never launched apply_lanes: " + ok)
+        check(cpu or "device=cuda" in child.out,
+              "a launcher shard is not on the card: " + child.out[-1500:])
+
+        # (a) the batch ops on the card, timed alone
+        os.environ["YTPU_NO_NATIVE_PLAN"] = "1"
+        before = dict(K.launches)
+        t0 = time.perf_counter()
+        got = [_batch_ops(pieces, device) for pieces, _r, _w in done]
+        if not cpu:
+            torch.cuda.synchronize()
+        fig["t_batch_ops"] = time.perf_counter() - t0
+        fig["batch_launches"] = _delta(K, before)
+        for i, (ours, (_p, theirs, _w)) in enumerate(zip(got, done)):
+            for what, a, b in zip(("merge", "state vector", "diff"),
+                                  ours, theirs):
+                check(a == b, f"doc {i}: the {what} on {device} differs from "
+                      "the one with device='cpu'")
+        check(cpu or fig["batch_launches"].get("conflict_scan", 0) > 0,
+              "the batch ops never launched the per-doc conflict scan")
+    finally:
+        restore_env("YTPU_NO_NATIVE_PLAN", saved)
+        for child in children.values():
+            child.kill()
+        pool.terminate()
+        pool.join()
+        shutil.rmtree(root, ignore_errors=True)
+    fig["n_docs"] = n_docs
+    fig["bytes_in"] = sum(len(u) for p, _r, _w in done for u in p)
+    fig["wall"] = time.perf_counter() - t_phase
+    rate = n_docs / fig["t_batch_ops"]
+    log(f"[gate] batch ops on {device}: {n_docs} docs of {N_GATE_PIECES} "
+        f"updates ({fig['bytes_in']} bytes), merge + state vector + diff "
+        f"each, {fig['t_batch_ops']:.3f}s = {rate:.1f} docs/s; equal byte "
+        "for byte to device='cpu' and, in canonical form, to the CPU core; "
+        f"launches {fig['batch_launches']} ({smi})")
+    log(f"[gate] torch_check_trace selftest rc 0 in {fig['t_trace']:.1f}s, "
+        f"launches {fig['trace_launches']}; torch_check_metrics_schema rc 0 "
+        f"in {fig['t_schema']:.1f}s (both beside the workers)")
+    log(f"[gate] {' '.join(GATE_LAUNCHER)}: exit 0 in "
+        f"{fig['t_launcher']:.1f}s, {ok!r}; its shards' launches "
+        f"{ {k: v for k, v in fig['launches_child'].items() if v} }")
+    log(f"[gate] workers waited for {fig['t_workers_wait']:.1f}s after (b) "
+        f"and (c); phase {fig['wall']:.1f}s ({smi})")
+    return fig
+
+
 def cuda_ms(fn, n: int = TIMED_LAUNCHES) -> float:
     """Mean ms of ``fn()`` over ``n`` calls, from CUDA events, after a
     warm-up call."""
@@ -4138,8 +4477,7 @@ def launches_a_call(K, fn) -> dict:
     before = dict(K.launches)
     fn()
     torch.cuda.synchronize()
-    return {k: v - before.get(k, 0) for k, v in K.launches.items()
-            if v != before.get(k, 0)}
+    return _delta(K, before)
 
 
 def kernels_a_call(fn, restore=None, n: int = 5) -> dict | None:
@@ -5130,10 +5468,11 @@ def main() -> int:
         f"{N_DOCS - len(traces)} docs replaying the plan cache and launching "
         "nothing); bursts of "
         f"{pfig['burst_updates']} updates (set-up) generated by worker "
-        "processes beside the twin's flush 1, waited for "
-        f"{pfig['t_bursts']:.1f}s after it; CPU twin flushes, planned cold "
-        f"on the plain kernels, {pfig['twin1']:.3f} (beside the burst "
-        f"workers) / {pfig['twin2']:.3f} / {pfig['twin3']:.3f}s")
+        "processes after the card's flush 1, waited for "
+        f"{pfig['t_bursts']:.1f}s after the twin's; CPU twin flushes, in a "
+        "process of their own beside the card's, planned cold on the plain "
+        f"kernels, {pfig['twin1']:.3f} (beside the burst workers too) / "
+        f"{pfig['twin2']:.3f} / {pfig['twin3']:.3f}s")
     check(pl_launches["conflict_scan_chunk"] >= 2,
           "the chunk conflict scan launched fewer than twice")
     check(pl_launches["anchor_lookup"] >= 1, "the anchor lookup never launched")
@@ -5221,6 +5560,17 @@ def main() -> int:
         restore_env("YTPU_SYNC_DEVICE", saved_env)
     check(service["fleet"]["diff_mask"] > 0,
           "the fleet's checkpoint never launched diff_mask")
+    # the port's CI checks and the doc-free batch ops on the card; the
+    # launcher child's shards count their own launches
+    K.reset_launches()
+    t0 = time.perf_counter()
+    gfig = gate_path(traces, dev["smi"])
+    torch.cuda.synchronize()
+    service["gate"] = dict(K.launches)
+    for name, n in gfig["launches_child"].items():
+        service["gate"][name] = service["gate"].get(name, 0) + int(n)
+    log(f"[gate] wall {time.perf_counter() - t0:.1f}s; launches "
+        f"{service['gate']} (the launcher's shards' included)")
     rows = kernel_phase(cap.seen, launches, pcap.seen, plaunches, ycap.seen,
                         ylaunches, plcap.seen, pl_launches, bfig, b_launches,
                         b4fig, b4_launches, mfig, m_launches)

@@ -7,14 +7,15 @@ the y-websocket-compatible :class:`~yjs_tpu_torch.cluster.Gateway`, then
 runs until SIGINT/SIGTERM.  ``--device`` places every shard's engine:
 the CUDA device by default (each child is its own CUDA context on the
 card, and a child that finds no CUDA device fails its spawn), or
-``cpu`` for the kernels' plain PyTorch versions.  ``--backend auto``
-puts every room on the engine; the default ``cpu`` keeps rooms on the
-CPU core, as the JAX launcher does.
+``cpu`` for the kernels' plain PyTorch versions.  ``--backend`` defaults
+to ``auto``, the provider's own default, so every room reaches the
+engine; ``--backend cpu`` keeps rooms on the CPU core, as the JAX
+launcher does by default.
 
 Shape of a run::
 
     python scripts/torch_ytpu_cluster.py --shards 3 --gateway 8765 \
-        --device cuda --backend auto
+        --device cuda
     python scripts/torch_ytpu_cluster.py --config cluster.json
     python scripts/torch_ytpu_cluster.py --shards 1 --smoke --device cpu
 
@@ -390,6 +391,21 @@ class WsClient:
         self._reader.join(timeout=2.0)
 
 
+def _smoke_launches(sup) -> dict:
+    """Every live shard's kernel launch counts (the ``launches`` RPC),
+    summed: ``apply_lanes`` above 0 shows the edit reached the engine
+    on the card; with ``--device cpu`` or ``--backend cpu`` every count
+    is 0."""
+    total: dict = {}
+    for row in sup.recovery_report()["shards"]:
+        if row["state"] != "live":
+            continue
+        got = sup._client_of(row["shard"]).call("launches", {})
+        for name, n in got["launches"].items():
+            total[name] = total.get(name, 0) + int(n)
+    return total
+
+
 def _smoke(gw, sup) -> int:
     """One edit through the gateway's session dialect, verified
     server-side, plus an admin-plane probe of every process — exits
@@ -422,9 +438,12 @@ def _smoke(gw, sup) -> int:
             for f in admin_fails:
                 print(f"smoke: admin FAILED {f}", file=sys.stderr)
             return 1
+        launches = _smoke_launches(sup)
+        print("smoke: launches " + json.dumps(launches, sort_keys=True))
         print(
-            "smoke: OK room=%r text=%r outbox=%s admin=ok"
-            % (room, text, snap.get("outbox_depth"))
+            "smoke: OK room=%r text=%r outbox=%s admin=ok apply_lanes=%d"
+            % (room, text, snap.get("outbox_depth"),
+               launches.get("apply_lanes", 0))
         )
         return 0
     finally:
@@ -450,10 +469,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="every shard's engine device (default: the "
                          "CUDA device; 'cpu' runs the plain kernels)")
-    ap.add_argument("--backend", default="cpu",
-                    help="every shard provider's backend: 'auto' puts "
-                         "rooms on the engine (default 'cpu', the CPU "
-                         "core)")
+    ap.add_argument("--backend", default="auto",
+                    help="every shard provider's backend (default "
+                         "'auto': rooms on the engine; 'cpu' keeps them "
+                         "on the CPU core)")
     ap.add_argument("--smoke", action="store_true",
                     help="one edit round-trip through the gateway, "
                          "then exit 0/1")

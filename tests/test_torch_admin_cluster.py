@@ -59,7 +59,8 @@ def test_shard_fencing_epoch_readiness(tmp_path):
     """The fenced-corpse state machine, driven through the real RPC
     dispatch seam: witnessing a fleet epoch ahead of the routing epoch
     flips /readyz 503; the supervisor's epoch push restores it."""
-    shard = ShardServer(7, str(tmp_path / "wal7"), n_docs=4)
+    shard = ShardServer(7, str(tmp_path / "wal7"), n_docs=4,
+                        backend="cpu")
     try:
         base = shard.admin.url
         assert _get(base + "/readyz")[0] == 200
@@ -99,7 +100,7 @@ def test_shard_recovered_wal_history_does_not_fence(tmp_path):
     live control frames fence, else every recovered shard would boot
     not-ready with no supervisor around to push an epoch."""
     wal = str(tmp_path / "wal0")
-    shard = ShardServer(0, wal, n_docs=4)
+    shard = ShardServer(0, wal, n_docs=4, backend="cpu")
     shard.handle_rpc_request(
         "journal_repl_role",
         {"guid": "roomr", "role": "replica", "epoch": 9, "primary": 1},
@@ -107,7 +108,7 @@ def test_shard_recovered_wal_history_does_not_fence(tmp_path):
     )
     shard.close()
 
-    shard = ShardServer(0, wal, n_docs=4)
+    shard = ShardServer(0, wal, n_docs=4, backend="cpu")
     try:
         assert shard.recovery["outcome"] == "recovered"
         assert shard._epoch_seen == 0  # history replayed, not witnessed
@@ -130,7 +131,7 @@ def test_cluster_admin_everywhere_and_federation_equivalence(tmp_path):
     byte-equivalent with the file-drop mode over the SAME payloads."""
 
     sup = Supervisor(
-        3, str(tmp_path / "wal"), docs_per_shard=4,
+        3, str(tmp_path / "wal"), docs_per_shard=4, backend="cpu",
         config=ClusterConfig(snapshot_dir="", **FAST),
     ).start()
     gw = Gateway(sup, config=GatewayConfig(port=0)).start()
@@ -175,7 +176,7 @@ def test_cluster_kill_shard_mid_scrape_yields_stale_row(tmp_path):
     """SIGKILL a shard, scrape immediately: its row is stale-marked,
     the others merge, federation never raises."""
     sup = Supervisor(
-        2, str(tmp_path / "wal"), docs_per_shard=4,
+        2, str(tmp_path / "wal"), docs_per_shard=4, backend="cpu",
         config=ClusterConfig(
             snapshot_dir="", restart_max=0, probe_timeout_s=60.0,
             scrape_timeout_s=1.0, **FAST,
@@ -206,7 +207,7 @@ def test_cluster_healthz_flips_on_sigstop(tmp_path):
     probe out; SIGCONT restores it.  probe_timeout_s is generous so
     the supervisor doesn't restart the shard under the test."""
     sup = Supervisor(
-        1, str(tmp_path / "wal"), docs_per_shard=4,
+        1, str(tmp_path / "wal"), docs_per_shard=4, backend="cpu",
         config=ClusterConfig(
             snapshot_dir="", probe_timeout_s=600.0, **FAST
         ),
@@ -269,7 +270,7 @@ def test_readyz_flips_during_wal_recovery(tmp_path, monkeypatch):
 
     def build():
         built["shard"] = ShardServer(
-            0, wal, n_docs=8, admin_port=admin_port
+            0, wal, n_docs=8, admin_port=admin_port, backend="cpu"
         )
 
     t = threading.Thread(target=build, daemon=True)
@@ -303,7 +304,7 @@ def test_cluster_fencing_flips_readyz_over_real_sockets(tmp_path):
     epoch ahead of its routing epoch (the frame a real failover sends
     to a stale primary) goes 503 until the supervisor's broadcast."""
     sup = Supervisor(
-        2, str(tmp_path / "wal"), docs_per_shard=4,
+        2, str(tmp_path / "wal"), docs_per_shard=4, backend="cpu",
         config=ClusterConfig(snapshot_dir="", **FAST),
     ).start()
     try:

@@ -201,7 +201,7 @@ def test_hung_shard_convicted_by_heartbeat_probe(tmp_path):
     ``client.alive`` — only the monitor's heartbeat probe can convict
     it.  Two unanswered probes must force a restart-through-recover."""
     sup = Supervisor(
-        2, str(tmp_path / "wal"), docs_per_shard=8,
+        2, str(tmp_path / "wal"), docs_per_shard=8, backend="cpu",
         config=ClusterConfig(probe_timeout_s=0.5, **FAST),
     ).start()
     hung_pid = None
@@ -239,3 +239,43 @@ def test_hung_shard_convicted_by_heartbeat_probe(tmp_path):
             except OSError:
                 pass
         sup.close()
+
+
+def test_library_and_launcher_defaults_put_rooms_on_the_engine(
+    tmp_path, monkeypatch
+):
+    """``Supervisor``, ``ShardServer``, the shard child's ``--backend``
+    and the launcher's ``--backend`` all default to ``"auto"``, the
+    provider's own default (the JAX cluster defaults to ``"cpu"``), and
+    ``device=None`` stays the CUDA device."""
+    import inspect
+
+    import yjs_tpu_torch.cluster as cluster_pkg
+    from yjs_tpu_torch.cluster import Supervisor as PortSupervisor
+    from yjs_tpu_torch.cluster import shard as shard_mod
+
+    for cls in (PortSupervisor, shard_mod.ShardServer):
+        params = inspect.signature(cls.__init__).parameters
+        assert params["backend"].default == "auto", cls
+        assert params["device"].default is None, cls
+    assert PortSupervisor(1, str(tmp_path / "wal")).device == "cuda"
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def capture(*args, **kwargs):
+        seen.update(kwargs)
+        raise Stop
+
+    monkeypatch.setattr(shard_mod, "ShardServer", capture)
+    with pytest.raises(Stop):
+        shard_mod.main(["--id", "0", "--wal-dir", str(tmp_path / "s")])
+    assert seen["backend"] == "auto" and seen["device"] is None
+
+    seen.clear()
+    monkeypatch.setattr(cluster_pkg, "Supervisor", capture)
+    with pytest.raises(Stop):
+        LAUNCHER.main(["--shards", "1", "--wal-root", str(tmp_path / "l")])
+    assert seen["backend"] == "auto" and seen["device"] is None

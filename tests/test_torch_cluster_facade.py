@@ -127,7 +127,7 @@ def test_spawn_ready_timeout_kills_silent_child(tmp_path):
     """A child that starts but never prints its ready line must fail
     the spawn at ``spawn_timeout_s`` and must not leak the process."""
     sup = Supervisor(
-        1, str(tmp_path / "wal"),
+        1, str(tmp_path / "wal"), backend="cpu",
         config=ClusterConfig(spawn_timeout_s=0.5, **FAST),
     )
     proc = subprocess.Popen(
@@ -153,7 +153,7 @@ def test_supervisor_facade_and_federated_metrics(tmp_path):
     and the federated snapshot carries every shard's families plus the
     supervisor's own cluster gauges."""
     sup = Supervisor(
-        2, str(tmp_path / "wal"), docs_per_shard=8,
+        2, str(tmp_path / "wal"), docs_per_shard=8, backend="cpu",
         config=ClusterConfig(**FAST),
     ).start()
     try:

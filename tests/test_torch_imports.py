@@ -5,7 +5,7 @@ so a machine with only PyTorch can run it.  Two checks hold it there:
 an import of the port's entry modules in a fresh interpreter whose
 import system refuses ``jax`` and ``yjs_tpu``, and a scan of every
 import statement in the package's source, ``chip_smoke.py``, the port's
-scripts and its examples.  The port's operator scripts and examples
+scripts (``scripts/torch_*.py``) and its examples.  The port's operator scripts and examples
 (``scripts/torch_ytpu_stats.py``, ``scripts/torch_ytpu_top.py``,
 ``examples/torch_server_demo.py``, ``examples/torch_socket_connector.py``)
 run under the same finder with ``--device cpu``, and without it, on a
@@ -89,7 +89,7 @@ def _imported_roots(tree: ast.AST):
 SOURCES = (
     sorted(PORT.rglob("*.py"))
     + [ROOT / "chip_smoke.py"]
-    + sorted((ROOT / "scripts").glob("torch_ytpu_*.py"))
+    + sorted((ROOT / "scripts").glob("torch_*.py"))
     + sorted((ROOT / "examples").glob("torch_*.py"))
 )
 

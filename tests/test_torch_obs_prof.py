@@ -375,7 +375,7 @@ def test_ytpu_stats_groups_and_watch(tmp_path):
 
 
 def test_knob_regex_covers_prof_and_slo():
-    mod = _load_script("check_metrics_schema")
+    mod = _load_script("torch_check_metrics_schema")
     knobs = mod.resilience_knobs_in_code()
     assert "YTPU_PROF_DEVICE" in knobs
     assert "YTPU_SLO_CONVERGENCE_MS" in knobs

@@ -5,7 +5,7 @@ fan-out, the heartbeat detector, promotion under a fencing epoch, the
 stale-primary fencing paths) and ``tests/test_blackbox_chaos.py`` (a
 kill-primary run's flight-recorder dump sharing one episode trace, 20
 storm seeds, tracing on against ``YTPU_OBS_DISABLED=1``, a merged fleet
-trace validated by ``scripts/check_trace.py``) run here on
+trace validated by the port's ``scripts/torch_check_trace.py``) run here on
 ``yjs_tpu_torch.fleet.FleetRouter``, every shard on the CPU
 (``device="cpu"``), under the ``"cpu"`` and ``"auto"`` provider
 backends.
@@ -636,8 +636,8 @@ def test_merged_fleet_trace_validates_green(backend, monkeypatch):
     """Everything-sampled 3-shard run, all shard tracers merged: every
     flow arrow resolves both ways and every sampled ingress chain
     reaches a convergence flow-finish (the same invariants CI enforces
-    via ``check_trace --selftest``)."""
-    import check_trace
+    via ``torch_check_trace --selftest``)."""
+    import torch_check_trace as check_trace
 
     monkeypatch.setenv("YTPU_TRACE_SAMPLE", "1")
     fleet = FleetRouter(3, 4, backend=backend)

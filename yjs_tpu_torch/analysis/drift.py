@@ -275,22 +275,22 @@ class DriftChecker(Checker):
                 )
 
 
-def live_comparison(root, device=None) -> list:
-    """The original check_metrics_schema live diff: registered metric
-    names (instantiating TpuProvider + FleetRouter) vs README's table,
-    plus the curated-knob README/code cross-check.  Returns a list of
-    human-readable problem strings (empty = in agreement).  Imports the
-    package and builds one provider and one fleet on ``device``
-    (``None`` is the CUDA device, which raises without one;
-    ``device="cpu"`` runs the plain kernels) — callers needing a path
-    that builds nothing use :class:`DriftChecker`.
-    """
+def curated_knobs_in_code(package_dir) -> set:
+    """The curated-prefix ``YTPU_*`` names (:data:`KNOB_RE`) that the
+    ``*.py`` files under ``package_dir`` mention anywhere."""
     from pathlib import Path
 
-    root = Path(root)
-    readme = (root / "README.md").read_text()
-    problems: list = []
+    knobs: set = set()
+    for path in Path(package_dir).rglob("*.py"):
+        knobs |= set(KNOB_RE.findall(path.read_text()))
+    return knobs
 
+
+def live_metric_names(device=None) -> set:
+    """The metric families the port registers live: one provider and
+    the smallest fleet built on ``device`` (``None`` is the CUDA device,
+    which raises without one; ``device="cpu"`` runs the plain kernels),
+    plus every lazily-registered process-global family touched once."""
     from yjs_tpu_torch.fleet import FleetRouter
     from yjs_tpu_torch.obs import global_registry
     from yjs_tpu_torch.provider import TpuProvider
@@ -328,9 +328,26 @@ def live_comparison(root, device=None) -> list:
     from yjs_tpu_torch.obs.tsdb import tsdb_metrics
 
     tsdb_metrics()
-    live = set(prov.engine.obs.registry.names()) | set(
+    return set(prov.engine.obs.registry.names()) | set(
         global_registry().names()
     )
+
+
+def live_comparison(root, device=None) -> list:
+    """The original check_metrics_schema live diff: registered metric
+    names (:func:`live_metric_names`, instantiating TpuProvider +
+    FleetRouter on ``device``) vs README's table, plus the curated-knob
+    README/code cross-check.  Returns a list of human-readable problem
+    strings (empty = in agreement).  Callers needing a path that builds
+    nothing use :class:`DriftChecker`.
+    """
+    from pathlib import Path
+
+    root = Path(root)
+    readme = (root / "README.md").read_text()
+    problems: list = []
+
+    live = live_metric_names(device)
     if not live:
         return []  # obs disabled (YTPU_OBS_DISABLED) — nothing to check
     doc = documented_metrics(readme)
@@ -341,9 +358,7 @@ def live_comparison(root, device=None) -> list:
     for n in sorted(doc - live):
         problems.append(f"documented in README but NOT registered: {n}")
 
-    code_knobs: set = set()
-    for path in (root / "yjs_tpu_torch").rglob("*.py"):
-        code_knobs |= set(KNOB_RE.findall(path.read_text()))
+    code_knobs = curated_knobs_in_code(root / "yjs_tpu_torch")
     doc_knobs = set(KNOB_RE.findall(readme))
     for n in sorted(code_knobs - doc_knobs):
         problems.append(f"env knob read by the code but NOT in README: {n}")

@@ -60,7 +60,7 @@ class ShardServer:
         n_docs: int = 64,
         host: str | None = None,
         port: int = 0,
-        backend: str = "cpu",
+        backend: str = "auto",
         tick_s: float = 0.05,
         config: ClusterConfig | None = None,
         admin_port: int | None = None,
@@ -536,7 +536,11 @@ def main(argv=None) -> int:
     ap.add_argument("--docs", type=int, default=64)
     ap.add_argument("--host", default=None)
     ap.add_argument("--port", type=int, default=0)
-    ap.add_argument("--backend", default="cpu")
+    ap.add_argument(
+        "--backend", default="auto",
+        help="the provider's backend (default 'auto', rooms on the "
+        "engine; 'cpu' keeps them on the CPU core)",
+    )
     ap.add_argument("--tick-s", type=float, default=0.05)
     ap.add_argument(
         "--device", default=None,

@@ -142,7 +142,7 @@ class Supervisor:
         wal_root: str,
         docs_per_shard: int = 64,
         config: ClusterConfig | None = None,
-        backend: str = "cpu",
+        backend: str = "auto",
         shard_tick_s: float = 0.05,
         device=None,
     ):
